@@ -1,0 +1,57 @@
+"""Synthetic MNIST stand-in (numpy), after ``repro.data.synthetic``.
+
+The reference draws with ``jax.random``; this version draws from a numpy
+``Generator``, so its data differ from the reference's for the same
+seed. Parity tests stage data with the reference and hand the arrays to
+the port (``datas=`` on the registry builders).
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+
+
+@dataclasses.dataclass
+class SyntheticClassification:
+    x: np.ndarray  # (n, d) float32
+    y: np.ndarray  # (n,) int64 labels
+    num_classes: int
+
+
+def _bilinear_matrix(n_in: int, n_out: int) -> np.ndarray:
+    """(n_out, n_in) half-pixel bilinear interpolation weights."""
+    src = (np.arange(n_out) + 0.5) * (n_in / n_out) - 0.5
+    src = np.clip(src, 0.0, n_in - 1)
+    lo = np.floor(src).astype(np.int64)
+    hi = np.minimum(lo + 1, n_in - 1)
+    frac = src - lo
+    mat = np.zeros((n_out, n_in))
+    mat[np.arange(n_out), lo] += 1.0 - frac
+    mat[np.arange(n_out), hi] += frac
+    return mat
+
+
+def make_synthetic_mnist(
+    rng: np.random.Generator,
+    num_train: int = 6000,
+    num_test: int = 1000,
+    dim: int = 784,
+    num_classes: int = 10,
+    prototype_scale: float = 2.0,
+    noise_scale: float = 1.0,
+) -> tuple:
+    """Class-conditional Gaussians around smooth (upsampled 7x7) prototypes."""
+    side = int(np.sqrt(dim))
+    coarse = rng.standard_normal((num_classes, 7, 7))
+    up = _bilinear_matrix(7, side)
+    protos = np.einsum("ai,cij,bj->cab", up, coarse, up)
+    protos = prototype_scale * protos.reshape(num_classes, dim)
+
+    def sample_split(n):
+        y = rng.integers(0, num_classes, size=n)
+        x = protos[y] + noise_scale * rng.standard_normal((n, dim))
+        return SyntheticClassification(
+            x=x.astype(np.float32), y=y.astype(np.int64), num_classes=num_classes)
+
+    return sample_split(num_train), sample_split(num_test)

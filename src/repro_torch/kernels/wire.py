@@ -1,0 +1,184 @@
+"""Fused wire kernels of the federated round: CUDA on the card, plain on the CPU.
+
+The two kernels of the ``wire="fused"`` path, hand-written in CUDA C++
+for Hopper (``repro_torch/csrc/wire.cu``), replacing the Pallas kernels
+of ``repro/kernels/wire.py``:
+
+  * :func:`fused_upload` (replaces ``wire.py:137 fused_upload``) — per
+    silo row: delta from the reference, L2 clip, DP noise, reference
+    added back, participation-mask select, optional int8 quantization
+    with one scale per row.
+  * :func:`fused_combine` (replaces ``wire.py:242 fused_combine``) —
+    weighted mean or trimmed mean over the silo axis, with an optional
+    in-kernel int8 dequantize.
+
+Dispatch is by the tensor's device and nothing else: a CPU tensor takes
+the plain version in :mod:`repro_torch.kernels.ref`; a CUDA tensor
+launches the kernel or raises. ``LAUNCHES`` counts kernel launches (one
+per launch, on the CUDA route only), so a run can show that its main
+path went through the kernels.
+
+The DP noise is an input: a ``(J, P)`` float32 N(0, I) tensor (the
+reference draws threefry noise in-kernel from per-row keys).
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Dict, Optional
+
+import torch
+
+from repro_torch.kernels import ref as _ref
+
+LAUNCHES: Dict[str, int] = {"fused_upload": 0, "fused_combine": 0}
+
+MAX_TRIM_ROWS = 1024  # the trimmed combine is O(J^2) per column
+
+_c_void_p, _c_int, _c_float = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_SIGNATURES = {
+    "repro_fused_upload": [_c_void_p] * 7 + [_c_int, _c_int, _c_int, _c_float,
+                                             _c_float, _c_int, _c_void_p],
+    "repro_fused_combine_f32": [_c_void_p] * 3 + [_c_int, _c_int, _c_int,
+                                                  _c_float, _c_void_p],
+    "repro_fused_combine_i8": [_c_void_p] * 4 + [_c_int, _c_int, _c_int,
+                                                 _c_float, _c_void_p],
+}
+_LIB = None
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _lib():
+    global _LIB
+    if _LIB is None:
+        from repro_torch.kernels import build
+
+        lib = build.load("wire")
+        for fn, argtypes in _SIGNATURES.items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = _c_int
+        _LIB = lib
+    return _LIB
+
+
+def _check(t: torch.Tensor, name: str, dtype: torch.dtype, shape, device) -> None:
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def _raise_on(err: int, fn: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{fn} failed to launch: cudaError_t {err}")
+
+
+def _on_cuda(x: torch.Tensor) -> bool:
+    if x.device.type == "cpu":
+        return False
+    if x.device.type != "cuda":
+        raise ValueError(f"the wire kernels run on cuda or cpu, got {x.device}")
+    return True
+
+
+def fused_upload(
+    x: torch.Tensor,  # (J, P) stacked wire matrix, one row per silo
+    *,
+    mask: torch.Tensor,  # (J,) participation mask (0/1)
+    noise: Optional[torch.Tensor] = None,  # (J, P) N(0, I) draws
+    reference: Optional[torch.Tensor] = None,  # (P,) broadcast row (SFVI-Avg)
+    clip_norm: Optional[float] = None,
+    noise_multiplier: float = 0.0,
+    quantize: bool = False,
+):
+    """Fused clip + noise + mask + int8 quantize over the wire matrix.
+
+    Returns the privatized (J, P) float32 matrix, or ``(q, scales)``
+    ((J, P) int8 + (J,) float32) when ``quantize``.
+    """
+    if noise_multiplier > 0.0 and clip_norm is None:
+        raise ValueError("noise_multiplier > 0 requires clip_norm")
+    if noise_multiplier > 0.0 and noise is None:
+        raise ValueError("noise_multiplier > 0 requires the (J, P) noise draw")
+    if not _on_cuda(x):
+        return _ref.wire_upload_ref(
+            x, mask=mask, noise=noise, reference=reference, clip_norm=clip_norm,
+            noise_multiplier=noise_multiplier, quantize=quantize)
+
+    J, P = x.shape
+    dev = x.device
+    _check(x, "x", torch.float32, (J, P), dev)
+    _check(mask, "mask", torch.float32, (J,), dev)
+    has_noise = noise_multiplier > 0.0
+    if has_noise:
+        _check(noise, "noise", torch.float32, (J, P), dev)
+    if reference is not None:
+        _check(reference, "reference", torch.float32, (P,), dev)
+    y = torch.empty((J, P), dtype=torch.float32, device=dev)
+    q = torch.empty((J, P), dtype=torch.int8, device=dev) if quantize else None
+    scales = torch.empty((J,), dtype=torch.float32, device=dev) if quantize else None
+    if J and P:
+        clip = clip_norm is not None
+        err = _lib().repro_fused_upload(
+            _ptr(x), _ptr(mask), _ptr(noise) if has_noise else None, _ptr(reference),
+            _ptr(y), _ptr(q), _ptr(scales), J, P, int(clip),
+            float(clip_norm) if clip else 0.0,
+            float(noise_multiplier) * float(clip_norm) if has_noise else 0.0,
+            int(quantize), torch.cuda.current_stream(dev).cuda_stream)
+        _raise_on(err, "fused_upload")
+        LAUNCHES["fused_upload"] += 1
+    return (q, scales) if quantize else y
+
+
+def fused_combine(
+    x: torch.Tensor,  # (J, P) gathered wire matrix (f32, or int8 with scales)
+    weights: torch.Tensor,  # (J,) aggregation weights (0/1 or fractional)
+    *,
+    scales: Optional[torch.Tensor] = None,  # (J,) int8 scales -> fused dequant
+    trim_frac: Optional[float] = None,
+) -> torch.Tensor:
+    """Fused masked/weighted (trimmed-)mean over the silo axis -> (P,) f32."""
+    dequant = scales is not None
+    if dequant and x.dtype != torch.int8:
+        raise ValueError(f"scales given but payload dtype is {x.dtype}")
+    if not _on_cuda(x):
+        mat = _ref.int8_rows_dequant_ref(x, scales) if dequant else x
+        if trim_frac is None:
+            return _ref.masked_weighted_mean_ref(mat, weights)
+        return _ref.masked_trimmed_mean_ref(mat, weights, trim_frac)
+
+    J, P = x.shape
+    dev = x.device
+    _check(x, "x", torch.int8 if dequant else torch.float32, (J, P), dev)
+    _check(weights, "weights", torch.float32, (J,), dev)
+    if dequant:
+        _check(scales, "scales", torch.float32, (J,), dev)
+    trimmed = trim_frac is not None
+    if trimmed and J > MAX_TRIM_ROWS:
+        raise ValueError(
+            f"the trimmed combine kernel supports J <= {MAX_TRIM_ROWS}, got {J}")
+    out = torch.empty((P,), dtype=torch.float32, device=dev)
+    if J and P:
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        tf = float(trim_frac) if trimmed else 0.0
+        if dequant:
+            err = _lib().repro_fused_combine_i8(
+                _ptr(x), _ptr(scales), _ptr(weights), _ptr(out), J, P,
+                int(trimmed), tf, stream)
+        else:
+            err = _lib().repro_fused_combine_f32(
+                _ptr(x), _ptr(weights), _ptr(out), J, P, int(trimmed), tf, stream)
+        _raise_on(err, "fused_combine")
+        LAUNCHES["fused_combine"] += 1
+    return out

@@ -1,0 +1,51 @@
+"""``python -m repro_torch.federated.run`` end to end on the CPU (tiny width).
+
+The first test runs the module in a subprocess; the second calls its
+``main`` in this process, which shares torch's start-up with the other
+tests.
+"""
+import math
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+from repro_torch.federated import run as cli
+
+ROOT = Path(__file__).resolve().parents[1]
+TINY = ["--device", "cpu", "--model", "hier_bnn", "--model-kwargs",
+        '{"in_dim":16,"hidden":8}', "--silos", "3", "--rounds", "2", "--local-steps", "2"]
+
+
+def _run(*extra):
+    cmd = [sys.executable, "-m", "repro_torch.federated.run", *TINY, *extra]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run(cmd, env=env, capture_output=True, text=True, timeout=180)
+    assert out.returncode == 0, out.stderr
+    return out.stdout
+
+
+def _elbos(stdout):
+    return [float(m) for m in re.findall(r"elbo=\s*(-?[\d.]+(?:e[+-]?\d+)?)", stdout)]
+
+
+def test_cli_both_algorithms_default_fused_wire():
+    out = _run("--algo", "both")
+    assert "== SFVI: hier_bnn" in out and "== SFVI-Avg: hier_bnn" in out
+    assert out.count("wire=fused") == 2
+    elbos = _elbos(out)
+    assert len(elbos) == 4 and all(math.isfinite(e) for e in elbos)
+    assert "bytes/round: SFVI=" in out
+
+
+def test_cli_dp_int8_trimmed_partial_reports_epsilon(capsys):
+    assert cli.main([*TINY, "--algo", "sfvi_avg", "--compress", "int8",
+                     "--aggregator", "trimmed", "--trim-frac", "0.34", "--dp-noise",
+                     "0.3", "--dp-clip", "0.3", "--participation", "0.67",
+                     "--wire", "flat"]) == 0
+    out = capsys.readouterr().out
+    elbos = _elbos(out)
+    assert len(elbos) == 2 and all(math.isfinite(e) for e in elbos)
+    assert len(re.findall(r"eps=\s*[\d.]+", out)) == 2
+    assert "active=2/3" in out and "-DP after 2 exchanges" in out
