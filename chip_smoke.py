@@ -8,24 +8,36 @@ and nothing of the JAX package. Phases, in order (any failure exits
 non-zero):
 
   1. the card's name and power limit (``nvidia-smi``); build every CUDA
-     kernel of the port from ``src/repro_torch/csrc`` with ``nvcc`` and
-     print the build seconds;
-  2. every kernel against its plain PyTorch version on the card, at the
-     main path's shapes (J=10, P=100,354) and at ragged ones, with the
-     tolerance printed beside the error; then the whole port on the card
-     (fused wire, CUDA kernels) against the port on the CPU (flat wire,
-     plain stages) on one injected random stream at a small width;
-  3. the main path at full width: hier_bnn (in_dim 784, hidden 64,
-     10 classes), J=10 silos of 200, K=4, through ``Server(wire="fused")``
-     — SFVI 3 rounds, SFVI-Avg 3 rounds, SFVI-Avg + int8 + trimmed mean +
-     DP 2 rounds, SFVI + int8 + trimmed mean 2 rounds — with the kernels'
-     launch counters set to 0 just before each run and read just after,
-     and the bytes per round checked; then 2 more rounds of each run under
-     ``torch.profiler`` for the device's busy and idle share;
+     kernel of the port from ``src/repro_torch/csrc`` with ``nvcc``, one
+     process per source, all started together, and print the build
+     seconds; check that float32 matmuls run in full float32 (no TF32);
+  2. every kernel against its plain PyTorch version on the card, with the
+     tolerance printed beside the error: the wire kernels at the hier_bnn
+     main path's shapes (J=10, P=100,354) and at ragged ones; the
+     Newton–Schulz step at d from 1 to 1,970 and the whole 40-step square
+     root; the reparam + STL forward and backward at N up to 508,160 in
+     f32 and bf16. Then the whole port on the card (fused wire, CUDA
+     kernels) against the port on the CPU (flat wire, plain stages) on one
+     injected random stream: hier_bnn at a small width, and the GLMM +
+     Cholesky global family at full width, SFVI and SFVI-Avg;
+  3. the main paths at full width, each through ``Server(wire="fused")``
+     with the kernels' launch counters set to 0 just before each run and
+     read just after, and the bytes per round checked:
+       hier_bnn (in_dim 784, hidden 64, 10 classes), J=10 silos of 200,
+       K=4 — SFVI 3 rounds, SFVI-Avg 3 rounds, SFVI-Avg + int8 + trimmed
+       mean + DP 2 rounds, SFVI + int8 + trimmed mean 2 rounds;
+       the paper's GLMM (six cities, 536 children), J=2, K=25, Cholesky
+       global family — SFVI 3 rounds, SFVI-Avg 3 rounds (4,000
+       Newton–Schulz steps a round); and J=6 (89 children a silo), rank-2
+       low-rank global family, unitriangular conditional local family,
+       SFVI-Avg + trimmed mean (0.2) 2 rounds;
+     then 2 more rounds of each run under ``torch.profiler`` for the
+     device's busy and idle share;
   4. timings (CUDA events, median of 20 single launches, each queued
      behind a sleep kernel so host overhead is excluded) of each kernel,
-     its plain version and, where one exists, a single PyTorch call
-     computing the same function, beside the bytes bound at 3.35 TB/s.
+     its plain version and, where one exists, PyTorch's own call(s)
+     computing the same function, beside the bound: the larger of bytes
+     at 3.35 TB/s and float32 operations at 67 TFLOP/s.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -46,6 +58,8 @@ SRC = ROOT / "src"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 F32_FLOPS = 67e12  # H100 SXM f32, outside the tensor cores
 MAIN_J, MAIN_P = 10, 100_354
+GLMM_CHILDREN, GLMM_J, GLMM_K = 536, 2, 25
+NS_STEPS_PER_MERGE = 50 * 2 * 40  # fixed-point steps x (root + batched roots) x NS steps
 SLEEP_CYCLES = 2_000_000
 DEVICE = "cuda"  # every tensor of the check lives here
 
@@ -183,6 +197,85 @@ def check_trim_33(torch, wire, ref, gen):
     assert err <= 1e-5
 
 
+NS_SHAPES = [(1, 1), (1, 5), (2, 5), (6, 5), (10, 5), (1, 64), (3, 65), (1, 257), (1, 1970)]
+REPARAM_NS = [1, 4097, 50_177, 508_160]  # 508,160 = hier_bnn's J x local dim
+
+
+def check_ns_step(torch, wire, ref, gen):
+    """The step kernel against its plain version; returns the largest error."""
+    worst = 0.0
+    for B, d in NS_SHAPES:
+        y = torch.randn((B, d, d), generator=gen, device=DEVICE) / math.sqrt(d)
+        z = torch.randn((B, d, d), generator=gen, device=DEVICE) / math.sqrt(d)
+        got = wire.newton_schulz_step(y, z)
+        want = ref.newton_schulz_step_ref(y, z)
+        sync(torch)
+        err = max(float((a - b).abs().max()) for a, b in zip(got, want, strict=True))
+        tol = 1e-5 * (1.0 + max(float(b.abs().max()) for b in want))
+        print(f"  newton_schulz_step ({B},{d},{d}) max_abs={err:.3e} (<= {tol:.1e})",
+              flush=True)
+        assert err <= tol, (B, d)
+        worst = max(worst, err)
+    for B, d in [(2, 5), (1, 64)]:
+        a = torch.randn((B, d, d), generator=gen, device=DEVICE)
+        spd = a @ a.mT / d + 0.1 * torch.eye(d, device=DEVICE)
+        got = wire.sqrtm_newton_schulz_fused(spd, num_iters=40)
+        want = ref.newton_schulz_sqrtm_ref(spd, 40)
+        sync(torch)
+        rel = float(torch.linalg.norm(got - want) / torch.linalg.norm(want))
+        resid = float((got @ got - spd).abs().max())
+        print(f"  sqrtm_newton_schulz_fused ({B},{d},{d}) 40 steps: rel_fro={rel:.3e} "
+              f"(<= 1e-4); |root^2 - A|_max={resid:.2e}", flush=True)
+        assert rel <= 1e-4, (B, d)
+    return worst
+
+
+def check_reparam(torch, reparam, ref, gen):
+    """Forward and backward kernels against the plain versions, f32 and bf16;
+    returns the largest elementwise error of each."""
+    worst = {"reparam_stl_fwd": 0.0, "reparam_stl_bwd": 0.0}
+    for n in REPARAM_NS:
+        for dtype in (torch.float32, torch.bfloat16):
+            mu, ls, eps, dz = (torch.randn((n,), generator=gen, device=DEVICE) for _ in range(4))
+            mu, eps, dz = mu.to(dtype), eps.to(dtype), dz.to(dtype)
+            ls = (0.3 * ls - 1.0).to(dtype)
+            dlq = torch.tensor(0.37, device=DEVICE)
+            z, lq = reparam.reparam_fwd(mu, ls, eps)
+            z0, lq0 = ref.reparam_stl_ref(mu, ls, eps)
+            grads = reparam.reparam_bwd(ls, eps, dz, dlq)
+            grads0 = ref.reparam_stl_bwd_ref(ls, eps, dz, dlq)
+            sync(torch)
+            assert z.dtype == dtype and lq.dtype == torch.float32
+            err = float((z.float() - z0.float()).abs().max())
+            tol = 1e-5 * (1.0 + float(z0.float().abs().max()))
+            rel = float((lq - lq0).abs() / lq0.abs())
+            berr = max(float((a.float() - b.float()).abs().max())
+                       for a, b in zip(grads, grads0, strict=True))
+            btol = 1e-5 * (1.0 + max(float(b.float().abs().max()) for b in grads0))
+            name = str(dtype).replace("torch.", "")
+            print(f"  reparam_stl N={n} {name}: z max_abs={err:.3e} (<= {tol:.1e}), "
+                  f"logq rel={rel:.2e} (<= 1e-5); backward max_abs={berr:.3e} "
+                  f"(<= {btol:.1e})", flush=True)
+            assert err <= tol and rel <= 1e-5 and berr <= btol, (n, name)
+            worst["reparam_stl_fwd"] = max(worst["reparam_stl_fwd"], err)
+            worst["reparam_stl_bwd"] = max(worst["reparam_stl_bwd"], berr)
+    # The autograd.Function launches both kernels on CUDA tensors.
+    before = dict(reparam.LAUNCHES)
+    mu = torch.randn((4097,), generator=gen, device=DEVICE, requires_grad=True)
+    ls = torch.full((4097,), -1.0, device=DEVICE, requires_grad=True)
+    eps = torch.randn((4097,), generator=gen, device=DEVICE)
+    z, lq = reparam.reparam_stl(mu, ls, eps)
+    (z.square().sum() + lq).backward()
+    sync(torch)
+    assert reparam.LAUNCHES["reparam_stl_fwd"] == before["reparam_stl_fwd"] + 1
+    assert reparam.LAUNCHES["reparam_stl_bwd"] == before["reparam_stl_bwd"] + 1
+    dls0 = (2.0 * z.detach() * torch.exp(ls.detach()) * eps - 1.0)
+    assert float((ls.grad - dls0).abs().max()) <= 1e-4
+    print("  reparam_stl autograd.Function on CUDA: forward + backward kernels, "
+          "d log_sigma matches the formula", flush=True)
+    return worst
+
+
 # ---------------------------------------------------------------------------
 # Phase 2b: the port on the card (fused) against the port on the CPU (flat)
 # ---------------------------------------------------------------------------
@@ -203,21 +296,67 @@ def injected_draws(np, torch, problem, J, P, seed):
     return draws
 
 
-def check_port_cuda_vs_cpu(np, torch):
+def glmm_bundle(J, children, global_family, local_family=None):
+    """The GLMM staged on the CPU with the given FamilySpecs applied."""
+    from repro_torch.core.family import FamilySpec
+    from repro_torch.models.paper.registry import apply_family_spec, get_model
+
+    bundle = get_model("glmm").build(0, J, device="cpu", num_children=children)
+    return apply_family_spec(
+        bundle, global_family=FamilySpec(*global_family),
+        local_family=None if local_family is None else FamilySpec(*local_family))
+
+
+def compare_cuda_vs_cpu(np, torch, label, bundle, configs, K, seed):
+    """Each config 3 rounds on one injected stream: the port on the card
+    (fused wire, CUDA kernels) against the port on the CPU (flat wire,
+    plain stages). Holds the ELBO to 1e-3 relative and η_G to 1e-3, both
+    absolute and relative to each leaf's largest entry."""
     from repro_torch.device import generator
-    from repro_torch.federated.aggregation import Int8Compressor, TrimmedMeanAggregator
-    from repro_torch.federated.privacy import PrivacyPolicy
     from repro_torch.federated.runtime import Server
-    from repro_torch.models.paper.registry import get_model
     from repro_torch.optim import adam
     from repro_torch.tree import tree_leaves, tree_map
 
-    J, K = 3, 2
-    bundle = get_model("hier_bnn").build(0, J, device="cpu", in_dim=16, hidden=8,
-                                         train_per_silo=20)
     problem = bundle.problem
+    J = len(bundle.datas)
     eta_G0 = problem.global_family.init(generator(0, torch.device("cpu")))
-    configs = {
+    for name, cfg in configs.items():
+        servers = {}
+        for dev, layout in (("cpu", "flat"), (DEVICE, "fused")):
+            datas = [tree_map(lambda x, dev=dev: x.to(dev), d) for d in bundle.datas]
+            servers[layout] = Server(problem, datas, {}, eta_G0, num_obs=bundle.num_obs,
+                                     server_opt=adam(2e-2), local_opt=adam(2e-2),
+                                     wire=layout, device=dev, **cfg)
+        servers["fused"].state = tree_map(lambda x: x.to(DEVICE), servers["flat"].state)
+        draws = injected_draws(np, torch, problem, J, servers["flat"].wire_spec().dim, seed)
+        hist = {k: srv.run(3, local_steps=K, draws=draws) for k, srv in servers.items()}
+        e_c = np.asarray(hist["flat"]["elbo_trace"])
+        e_g = np.asarray(hist["fused"]["elbo_trace"])
+        rel = float(np.max(np.abs(e_c - e_g) / np.abs(e_c)))
+        pairs = [(a.cpu(), b) for a, b in zip(tree_leaves(servers["fused"].eta_G),
+                                              tree_leaves(servers["flat"].eta_G), strict=True)]
+        diff = max(float((a - b).abs().max()) for a, b in pairs)
+        diff_rel = max(float((a - b).abs().max() / b.abs().max()) for a, b in pairs)
+        print(f"  port {DEVICE}/fused vs cpu/flat [{label} {name}] 3 rounds: elbo "
+              f"max_rel={rel:.2e} (<= 1e-3), eta_G max_abs={diff:.2e} (<= 1e-3), "
+              f"max_rel={diff_rel:.2e} (<= 1e-3, per leaf against its largest entry)",
+              flush=True)
+        assert np.all(np.isfinite(e_g)) and rel <= 1e-3, name
+        assert diff <= 1e-3 and diff_rel <= 1e-3, name
+        assert hist["flat"]["bytes_up"] == hist["fused"]["bytes_up"], name
+
+
+def check_port_cuda_vs_cpu(np, torch):
+    """hier_bnn at a small width (J=3, K=2), three wire configurations; then
+    glmm + Cholesky at full width (536 children, J=2, K=25), SFVI and
+    SFVI-Avg (upload, combine and Newton–Schulz kernels)."""
+    from repro_torch.federated.aggregation import Int8Compressor, TrimmedMeanAggregator
+    from repro_torch.federated.privacy import PrivacyPolicy
+    from repro_torch.models.paper.registry import get_model
+
+    bundle = get_model("hier_bnn").build(0, 3, device="cpu", in_dim=16, hidden=8,
+                                         train_per_silo=20)
+    compare_cuda_vs_cpu(np, torch, "hier_bnn", bundle, {
         "sfvi": dict(strategy="sfvi"),
         "sfvi+int8+trimmed": dict(
             strategy="sfvi", compressor=Int8Compressor(),
@@ -225,26 +364,12 @@ def check_port_cuda_vs_cpu(np, torch):
         "sfvi_avg+trimmed+dp": dict(
             strategy="sfvi_avg", aggregator=TrimmedMeanAggregator(0.34),
             privacy=PrivacyPolicy(clip_norm=0.3, noise_multiplier=0.3)),
-    }
-    for name, cfg in configs.items():
-        servers = {}
-        for dev, layout in (("cpu", "flat"), (DEVICE, "fused")):
-            datas = [tree_map(lambda x, dev=dev: x.to(dev), d) for d in bundle.datas]
-            servers[layout] = Server(problem, datas, {}, eta_G0, server_opt=adam(2e-2),
-                                     local_opt=adam(2e-2), wire=layout, device=dev, **cfg)
-        servers["fused"].state = tree_map(lambda x: x.to(DEVICE), servers["flat"].state)
-        draws = injected_draws(np, torch, problem, J, servers["flat"].wire_spec().dim, 11)
-        hist = {k: srv.run(3, local_steps=K, draws=draws) for k, srv in servers.items()}
-        e_c = np.asarray(hist["flat"]["elbo_trace"])
-        e_g = np.asarray(hist["fused"]["elbo_trace"])
-        rel = float(np.max(np.abs(e_c - e_g) / np.abs(e_c)))
-        diff = max(float((a.cpu() - b.cpu()).abs().max()) for a, b in zip(
-            tree_leaves(servers["flat"].eta_G), tree_leaves(servers["fused"].eta_G),
-            strict=True))
-        print(f"  port {DEVICE}/fused vs cpu/flat [{name}] 3 rounds: elbo max_rel={rel:.2e} "
-              f"(<= 1e-3), eta_G max_abs={diff:.2e} (<= 1e-3)", flush=True)
-        assert np.all(np.isfinite(e_g)) and rel <= 1e-3 and diff <= 1e-3, name
-        assert hist["flat"]["bytes_up"] == hist["fused"]["bytes_up"], name
+    }, K=2, seed=11)
+    compare_cuda_vs_cpu(
+        np, torch, f"glmm {GLMM_CHILDREN} children J={GLMM_J} K={GLMM_K} cholesky",
+        glmm_bundle(GLMM_J, GLMM_CHILDREN, ("cholesky",)),
+        {"sfvi": dict(strategy="sfvi"), "sfvi_avg": dict(strategy="sfvi_avg")},
+        K=GLMM_K, seed=12)
 
 
 # ---------------------------------------------------------------------------
@@ -289,13 +414,60 @@ def profile_rounds(torch, srv, K, start_round, rounds=2) -> dict:
     return {"rounds": rounds, **profile_summary(prof, wall)}
 
 
-def main_path(np, torch, wire, in_dim=784, hidden=64):
+KERNEL_COUNTS = ("fused_upload", "fused_combine", "newton_schulz_step")
+
+
+def drive(torch, wire, reparam, label, srv, rounds, K, want_up, per_round, rise):
+    """One main-path run with the launch counters set to 0 just before and
+    read just after; asserts bytes and launches per round, then profiles
+    two more rounds. ``per_round`` holds the launches a round of each kernel
+    in ``KERNEL_COUNTS``; the reparam kernels, which no round calls, must
+    stay at 0."""
+    stamps = []
+    sync(torch)
+    wire.reset_launches()
+    reparam.reset_launches()
+    t0 = time.perf_counter()
+    h = srv.run(rounds, local_steps=K,
+                callback=lambda r, m: stamps.append(time.perf_counter()))
+    sync(torch)
+    counts = {k: wire.LAUNCHES[k] for k in KERNEL_COUNTS}
+    counts.update(reparam.LAUNCHES)
+    round_s = [b - a for a, b in zip([t0] + stamps[:-1], stamps)]
+    print(f"  {label}: elbo={['%.2f' % e for e in h['elbo']]} "
+          f"bytes_up={h['bytes_up']} bytes_down={h['bytes_down']} launches={counts} "
+          f"s/round={['%.4f' % s for s in round_s]}", flush=True)
+    if "epsilon" in h:
+        print(f"  {label}: epsilon={h['epsilon']}", flush=True)
+    assert all(math.isfinite(e) for e in h["elbo_trace"]), label
+    if rise:
+        assert h["elbo"][-1] > h["elbo"][0], f"{label}: ELBO did not rise"
+    assert h["bytes_up"] == [want_up] * rounds, (label, h["bytes_up"])
+    want = {k: n * rounds for k, n in zip(KERNEL_COUNTS, per_round, strict=True)}
+    want.update({k: 0 for k in reparam.LAUNCHES})
+    assert counts == want, (label, counts, want)
+    for leaf in srv.eta_G.values():
+        assert bool(torch.isfinite(leaf).all()), label
+    return counts, round_s, profile_rounds(torch, srv, K, start_round=rounds)
+
+
+def new_server(torch, bundle, algo, **extra):
     from repro_torch.device import generator
+    from repro_torch.federated.runtime import Server
+    from repro_torch.optim import adam
+
+    problem = bundle.problem
+    datas = [{k: v.to(DEVICE) for k, v in d.items()} for d in bundle.datas]
+    return Server(problem, datas, bundle.theta0,
+                  problem.global_family.init(generator(0, torch.device(DEVICE))),
+                  num_obs=bundle.num_obs, server_opt=adam(2e-2), local_opt=adam(2e-2),
+                  wire="fused", seed=0, strategy=algo, device=DEVICE, **extra)
+
+
+def main_path(np, torch, wire, reparam, in_dim=784, hidden=64):
     from repro_torch.federated.aggregation import Int8Compressor, TrimmedMeanAggregator
     from repro_torch.federated.privacy import PrivacyPolicy
-    from repro_torch.federated.runtime import Server
     from repro_torch.models.paper.registry import get_model
-    from repro_torch.optim import adam
 
     J, K = MAIN_J, 4
     bundle = get_model("hier_bnn").build(
@@ -309,56 +481,54 @@ def main_path(np, torch, wire, in_dim=784, hidden=64):
     # SFVI-Avg merges η_G as a barycenter: its two moment rows (mean, std)
     # go through the combine kernel, and no combined row is formed (θ = ∅).
     runs = [
-        # (label, strategy, rounds, Server kwargs, bytes up per round,
-        #  launches per round (upload, combine))
-        ("sfvi", "sfvi", 3, {}, K * J * 4 * P, (K, K)),
-        ("sfvi_avg", "sfvi_avg", 3, {}, J * 4 * P, (1, 2)),
-        ("sfvi_avg+int8+trimmed+dp", "sfvi_avg", 2,
+        # (label, bundle, strategy, rounds, K, Server kwargs, bytes up per round,
+        #  launches per round (upload, combine, Newton–Schulz step), ELBO must rise)
+        ("sfvi", bundle, "sfvi", 3, K, {}, K * J * 4 * P, (K, K, 0), True),
+        ("sfvi_avg", bundle, "sfvi_avg", 3, K, {}, J * 4 * P, (1, 2, 0), True),
+        ("sfvi_avg+int8+trimmed+dp", bundle, "sfvi_avg", 2, K,
          dict(compressor=Int8Compressor(), aggregator=TrimmedMeanAggregator(0.1),
               privacy=PrivacyPolicy(clip_norm=0.3, noise_multiplier=0.3)),
-         J * (P + 4), (1, 2)),
+         J * (P + 4), (1, 2, 0), False),
         # step cadence: int8 is dequantized inside the trimmed combine kernel
-        ("sfvi+int8+trimmed", "sfvi", 2,
+        ("sfvi+int8+trimmed", bundle, "sfvi", 2, K,
          dict(compressor=Int8Compressor(), aggregator=TrimmedMeanAggregator(0.1)),
-         K * J * (P + 4), (K, K)),
+         K * J * (P + 4), (K, K, 0), False),
     ]
-    if P == 100_354:
-        assert [r[4] for r in runs] == [16_056_640, 4_014_160, 1_003_580, 4_014_320]
-    totals = {"fused_upload": 0, "fused_combine": 0}
+    assert [r[6] for r in runs] == [16_056_640, 4_014_160, 1_003_580, 4_014_320]
+
+    # The paper's GLMM at its benchmark's width (536 children, J=2, K=25)
+    # with the Cholesky global family: η_G = (mu, log_sigma, L_packed) is a
+    # 5 + 5 + 10 = 20-float wire row. SFVI-Avg's full-covariance barycenter
+    # merges the means with the combine kernel and takes 50 x (1 + 1
+    # batched) square roots of 40 Newton–Schulz steps each.
+    Jg, Kg = GLMM_J, GLMM_K
+    chol = glmm_bundle(Jg, GLMM_CHILDREN, ("cholesky",))
+    # J=6 (89 children a silo) with a rank-2 low-rank global family, the
+    # unitriangular conditional local family and a trimmed mean dropping
+    # one silo at each end (k = floor(0.2 * 6) = 1).
+    lowrank = glmm_bundle(6, GLMM_CHILDREN, ("lowrank", {"rank": 2}),
+                          ("conditional", {"use_chol": True}))
+    print(f"  glmm: global dim 5, local dim {chol.problem.model.local_dim} (J={Jg}) / "
+          f"{lowrank.problem.model.local_dim} (J=6), wire P=20, K={Kg}", flush=True)
+    runs += [
+        ("glmm+cholesky sfvi", chol, "sfvi", 3, Kg, {}, Kg * Jg * 4 * 20, (Kg, Kg, 0), True),
+        ("glmm+cholesky sfvi_avg", chol, "sfvi_avg", 3, Kg, {}, Jg * 4 * 20,
+         (1, 1, NS_STEPS_PER_MERGE), True),
+        ("glmm+lowrank+chol_local sfvi_avg+trimmed", lowrank, "sfvi_avg", 2, Kg,
+         dict(aggregator=TrimmedMeanAggregator(0.2)), 6 * 4 * 20,
+         (1, 1, NS_STEPS_PER_MERGE), False),
+    ]
+    assert [r[6] for r in runs[4:]] == [4000, 160, 480]
+    totals = {k: 0 for k in KERNEL_COUNTS}
     seconds, profiles = {}, {}
-    for label, algo, rounds, extra, want_up, per_round in runs:
-        srv = Server(problem, bundle.datas, bundle.theta0,
-                     problem.global_family.init(generator(0, torch.device(DEVICE))),
-                     num_obs=bundle.num_obs, server_opt=adam(2e-2),
-                     local_opt=adam(2e-2), wire="fused", seed=0, strategy=algo,
-                     device=DEVICE, **extra)
-        assert srv.wire_spec().dim == MAIN_P
-        stamps = []
-        sync(torch)
-        wire.reset_launches()
-        t0 = time.perf_counter()
-        h = srv.run(rounds, local_steps=K,
-                    callback=lambda r, m: stamps.append(time.perf_counter()))
-        sync(torch)
-        counts = dict(wire.LAUNCHES)
-        round_s = [b - a for a, b in zip([t0] + stamps[:-1], stamps)]
-        seconds[label] = round_s
-        print(f"  {label}: elbo={['%.2f' % e for e in h['elbo']]} "
-              f"bytes_up={h['bytes_up']} launches={counts} "
-              f"s/round={['%.4f' % s for s in round_s]}", flush=True)
-        if "epsilon" in h:
-            print(f"  {label}: epsilon={h['epsilon']}", flush=True)
-        assert all(math.isfinite(e) for e in h["elbo_trace"]), label
-        if not extra:
-            assert h["elbo"][-1] > h["elbo"][0], f"{label}: ELBO did not rise"
-        assert h["bytes_up"] == [want_up] * rounds, (label, h["bytes_up"])
-        assert counts == {"fused_upload": per_round[0] * rounds,
-                          "fused_combine": per_round[1] * rounds}, (label, counts)
+    for label, bun, algo, rounds, k_steps, extra, want_up, per_round, rise in runs:
+        srv = new_server(torch, bun, algo, **extra)
+        if bun is bundle:
+            assert srv.wire_spec().dim == MAIN_P
+        counts, seconds[label], profiles[label] = drive(
+            torch, wire, reparam, label, srv, rounds, k_steps, want_up, per_round, rise)
         for k in totals:
             totals[k] += counts[k]
-        eta = srv.eta_G
-        assert eta["mu"].shape == (gdim,) and bool(torch.isfinite(eta["mu"]).all())
-        profiles[label] = profile_rounds(torch, srv, K, start_round=rounds)
     return totals, seconds, profiles
 
 
@@ -385,7 +555,7 @@ def device_ms(torch, fn, reps=20, warmup=3):
     return statistics.median(times)
 
 
-def timings(np, torch, wire, ref, gen):
+def timings(np, torch, wire, ref, reparam, gen):
     J, P = MAIN_J, MAIN_P
     x = torch.randn((J, P), generator=gen, device=DEVICE)
     noise = torch.randn((J, P), generator=gen, device=DEVICE)
@@ -442,26 +612,108 @@ def timings(np, torch, wire, ref, gen):
             ms=device_ms(torch, lambda kw=kw, mat=mat: wire.fused_combine(mat, w, **kw)),
             plain_ms=device_ms(torch, plain), library_ms=library,
             nbytes=nbytes, flops=flops))
+    # The combine kernel at the barycenter's shapes: the glmm means (2, 5)
+    # and hier_bnn's moment rows (10, 50,177).
+    for Jc, Pc in [(2, 5), (10, 50_177)]:
+        xc = torch.randn((Jc, Pc), generator=gen, device=DEVICE)
+        wc = torch.ones((Jc,), device=DEVICE)
+        denom = torch.sum(wc)
+        rows.append(dict(
+            name="fused_combine", mode=f"mean_{Jc}x{Pc}",
+            ms=device_ms(torch, lambda xc=xc, wc=wc: wire.fused_combine(xc, wc)),
+            plain_ms=device_ms(torch, lambda xc=xc, wc=wc: ref.masked_weighted_mean_ref(xc, wc)),
+            library_ms=device_ms(torch, lambda xc=xc, wc=wc, denom=denom: torch.mv(xc.T, wc) / denom),
+            nbytes=Jc * Pc * f4 + Jc * f4 + Pc * f4, flops=2 * Jc * Pc, shape=[Jc, Pc]))
+    rows += ns_timings(torch, wire, ref, gen) + reparam_timings(torch, reparam, ref, gen)
     for row in rows:
         row["bound_ms"] = max(row["nbytes"] / HBM_BYTES_PER_S, row["flops"] / F32_FLOPS) * 1e3
         row["bound_by"] = ("bytes" if row["nbytes"] / HBM_BYTES_PER_S
                            >= row["flops"] / F32_FLOPS else "operations")
-        print(json.dumps({"timing": row, "shape": [J, P]}), flush=True)
+        print(json.dumps({"timing": row, "shape": row.pop("shape", [J, P])}), flush=True)
     return rows
 
 
+def ns_timings(torch, wire, ref, gen):
+    """The step at the barycenter's shapes and at larger d. The library
+    yardstick is PyTorch's own batched products for the same step:
+    t = baddbmm(1.5 I, z, y, alpha=-0.5), then bmm(y, t) and bmm(t, z)."""
+    rows = []
+    for B, d in [(2, 5), (10, 5), (1, 257), (1, 1970)]:
+        y = torch.randn((B, d, d), generator=gen, device=DEVICE) / math.sqrt(d)
+        z = torch.randn((B, d, d), generator=gen, device=DEVICE) / math.sqrt(d)
+        half3 = (1.5 * torch.eye(d, device=DEVICE)).expand(B, d, d)
+
+        def library(y=y, z=z, half3=half3):
+            t = torch.baddbmm(half3, z, y, alpha=-0.5)
+            return torch.bmm(y, t), torch.bmm(t, z)
+
+        got, want = library(), ref.newton_schulz_step_ref(y, z)
+        assert max(float((a - b).abs().max()) for a, b in zip(got, want, strict=True)) <= 1e-4
+        rows.append(dict(
+            name="newton_schulz_step", mode=f"B{B}_d{d}",
+            ms=device_ms(torch, lambda y=y, z=z: wire.newton_schulz_step(y, z)),
+            plain_ms=device_ms(torch, lambda y=y, z=z: ref.newton_schulz_step_ref(y, z)),
+            library_ms=device_ms(torch, library),
+            # y, z read once and y t, t z written once; 3 products of 2 d^3
+            nbytes=B * 4 * d * d * 4, flops=B * 3 * 2 * d**3, shape=[B, d, d]))
+    return rows
+
+
+def reparam_timings(torch, reparam, ref, gen):
+    """Forward and backward in f32 at hier_bnn's J x local dim and at its
+    global dim. The forward's yardstick is ``torch.addcmul(mu, ls.exp(),
+    eps)`` for z; no single PyTorch call computes the backward."""
+    rows = []
+    for n in (508_160, 50_177):
+        mu, ls, eps, dz = (torch.randn((n,), generator=gen, device=DEVICE) for _ in range(4))
+        ls = 0.3 * ls - 1.0
+        dlq = torch.tensor(0.37, device=DEVICE)
+        rows.append(dict(
+            name="reparam_stl_fwd", mode=f"f32_N{n}",
+            ms=device_ms(torch, lambda mu=mu, ls=ls, eps=eps: reparam.reparam_fwd(mu, ls, eps)),
+            plain_ms=device_ms(torch, lambda mu=mu, ls=ls, eps=eps: ref.reparam_stl_ref(mu, ls, eps)),
+            library_ms=device_ms(torch, lambda mu=mu, ls=ls, eps=eps: torch.addcmul(mu, ls.exp(), eps)),
+            nbytes=16 * n + 4, flops=5 * n, shape=[n]))
+        rows.append(dict(
+            name="reparam_stl_bwd", mode=f"f32_N{n}",
+            ms=device_ms(torch, lambda ls=ls, eps=eps, dz=dz, dlq=dlq:
+                         reparam.reparam_bwd(ls, eps, dz, dlq)),
+            plain_ms=device_ms(torch, lambda ls=ls, eps=eps, dz=dz, dlq=dlq:
+                               ref.reparam_stl_bwd_ref(ls, eps, dz, dlq)),
+            library_ms=None, nbytes=24 * n + 4, flops=6 * n, shape=[n]))
+    return rows
+
+
+KERNELS = {
+    # name: (source, the TPU kernel it replaces, the timing mode of its line)
+    "fused_upload": ("src/repro_torch/csrc/wire.cu", "src/repro/kernels/wire.py:137", "sfvi"),
+    "fused_combine": ("src/repro_torch/csrc/wire.cu", "src/repro/kernels/wire.py:242", "mean"),
+    "newton_schulz_step": ("src/repro_torch/csrc/newton_schulz.cu",
+                           "src/repro/kernels/wire.py:310", "B2_d5"),
+    "reparam_stl_fwd": ("src/repro_torch/csrc/reparam.cu", "src/repro/kernels/reparam.py:57",
+                        "f32_N508160"),
+    "reparam_stl_bwd": ("src/repro_torch/csrc/reparam.cu", "src/repro/kernels/reparam.py:128",
+                        "f32_N508160"),
+}
+
+
 def kernels_line(rows, launches, errors):
-    """The ``kernels`` entries: each kernel's main-path row (its first timing)."""
-    first = {r["name"]: r for r in reversed(rows)}
-    lines = {"fused_upload": 137, "fused_combine": 242}
-    return [{
-        "name": name, "route": "cuda", "source": "src/repro_torch/csrc/wire.cu",
-        "replaces": f"src/repro/kernels/wire.py:{line}",
-        "launches": launches[name], "max_abs_err": errors[name],
-        "ms": first[name]["ms"], "plain_ms": first[name]["plain_ms"],
-        "bound_ms": first[name]["bound_ms"], "bound_by": first[name]["bound_by"],
-        "library_ms": first[name]["library_ms"],
-    } for name, line in lines.items()]
+    """The ``kernels`` entries: each kernel's row at its main-path shape.
+
+    ``launches`` are the main-path runs' counts; the reparam kernels are on
+    no round's path (as in the JAX package), so theirs is 0.
+    """
+    by_mode = {(r["name"], r["mode"]): r for r in rows}
+    out = []
+    for name, (source, replaces, mode) in KERNELS.items():
+        row = by_mode[(name, mode)]
+        out.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": launches.get(name, 0), "max_abs_err": errors[name],
+            "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+        })
+    return out
 
 
 def main() -> int:
@@ -475,15 +727,17 @@ def main() -> int:
     sys.path.insert(0, str(SRC))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # The plain Newton–Schulz step (and its cuBLAS yardstick) must be full f32.
+    assert torch.get_float32_matmul_precision() == "highest"
+    assert not torch.backends.cuda.matmul.allow_tf32
 
-    from repro_torch.kernels import build, ref, wire
+    from repro_torch.kernels import build, ref, reparam, wire
 
-    # Phase 1: the card, then the build.
+    # Phase 1: the card, then the build (one nvcc per source, in parallel).
     card = gpu_line()
     print(card, flush=True)
     t0 = time.perf_counter()
-    for name in build.SOURCES:
-        build.build(name)
+    build.build_all()
     print(f"build: {time.perf_counter() - t0:.1f}s for {sorted(build.SOURCES)}", flush=True)
 
     # Phase 2: kernels against their plain versions, then the port end to end.
@@ -495,11 +749,13 @@ def main() -> int:
     err_co = check_combine(torch, wire, ref, MAIN_J, MAIN_P, gen)
     check_combine(torch, wire, ref, 7, 4099, gen)
     check_trim_33(torch, wire, ref, gen)
+    err_ns = check_ns_step(torch, wire, ref, gen)
+    err_rp = check_reparam(torch, reparam, ref, gen)
     check_port_cuda_vs_cpu(np, torch)
 
-    # Phase 3: the main path at full width.
-    print("phase 3: main path, hier_bnn at full width", flush=True)
-    totals, seconds, profiles = main_path(np, torch, wire)
+    # Phase 3: the main paths at full width.
+    print("phase 3: main paths at full width (hier_bnn, glmm)", flush=True)
+    totals, seconds, profiles = main_path(np, torch, wire, reparam)
     for label, round_s in seconds.items():
         print(json.dumps({"s_per_round": label, "rounds": round_s,
                           "median_after_first": statistics.median(round_s[1:])}),
@@ -508,8 +764,9 @@ def main() -> int:
 
     # Phase 4: timings.
     print("phase 4: timings", flush=True)
-    rows = timings(np, torch, wire, ref, gen)
-    kernels = kernels_line(rows, totals, {"fused_upload": err_up, "fused_combine": err_co})
+    rows = timings(np, torch, wire, ref, reparam, gen)
+    kernels = kernels_line(rows, totals, {"fused_upload": err_up, "fused_combine": err_co,
+                                          "newton_schulz_step": err_ns, **err_rp})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

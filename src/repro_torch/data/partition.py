@@ -1,12 +1,25 @@
 """Federated silo partitioners (numpy), copied from ``repro.data.partition``.
 
-Only the paper's §4.1 heterogeneity protocol is on the slice's path.
+The paper's §4.1 heterogeneity protocol and the explicit-size split of
+the GLMM.
 """
 from __future__ import annotations
 
 from typing import List
 
 import numpy as np
+
+
+def sizes_partition(rng: np.random.Generator, n: int, sizes: List[int]) -> List[np.ndarray]:
+    """Random split with explicit per-silo sizes (e.g. the GLMM's 300/237)."""
+    if sum(sizes) != n:
+        raise ValueError(f"sizes {sizes} must sum to n={n}")
+    perm = rng.permutation(n)
+    out, start = [], 0
+    for s in sizes:
+        out.append(np.sort(perm[start:start + s]))
+        start += s
+    return out
 
 
 def heterogeneous_label_partition(

@@ -1,4 +1,5 @@
-"""Synthetic MNIST stand-in (numpy), after ``repro.data.synthetic``.
+"""Synthetic data (numpy), after ``repro.data.synthetic``: the MNIST
+stand-in and the six-cities GLMM data.
 
 The reference draws with ``jax.random``; this version draws from a numpy
 ``Generator``, so its data differ from the reference's for the same
@@ -55,3 +56,24 @@ def make_synthetic_mnist(
             x=x.astype(np.float32), y=y.astype(np.int64), num_classes=num_classes)
 
     return sample_split(num_train), sample_split(num_test)
+
+
+def make_six_cities(rng: np.random.Generator, num_children: int = 537) -> tuple:
+    """Six-cities longitudinal wheeze stand-in (Fitzmaurice & Laird 1993).
+
+    ``num_children`` × 4 yearly visits; covariates maternal smoking
+    (binary, per child) and age centred at 9 (−2..1, per visit). Responses
+    follow the paper's logistic mixed model with known ground truth.
+    Returns ``(data, truth)`` with float32 ``smoke`` (n,), ``age`` (n, 4)
+    and ``y`` (n, 4).
+    """
+    smoke = (rng.random(num_children) < 0.4).astype(np.float32)
+    age = np.tile(np.array([-2.0, -1.0, 0.0, 1.0], np.float32), (num_children, 1))
+    true_beta = np.array([-1.8, 0.4, -0.15, 0.08], np.float32)
+    true_omega = 0.0  # random-intercept sd = exp(-omega) = 1.0
+    b = (np.exp(-true_omega) * rng.standard_normal(num_children)).astype(np.float32)
+    logits = (true_beta[0] + true_beta[1] * smoke[:, None] + true_beta[2] * age
+              + true_beta[3] * smoke[:, None] * age + b[:, None])
+    y = (rng.random(logits.shape) < 1.0 / (1.0 + np.exp(-logits))).astype(np.float32)
+    data = {"smoke": smoke, "age": age, "y": y}
+    return data, {"beta": true_beta, "omega": float(true_omega)}

@@ -4,13 +4,24 @@
         --model-kwargs '{"in_dim":784,"hidden":64}' \
         --silos 10 --rounds 3 --local-steps 4 --algo both --wire fused
 
+    python -m repro_torch.federated.run --model glmm \
+        --model-kwargs '{"num_children": 536}' --silos 2 \
+        --global-family cholesky --rounds 3 --local-steps 25 --algo both
+
 Runs on ``cuda`` by default (``--device cpu`` for the CPU, where the
 fused wire takes the kernels' plain versions). Prints per-round ELBO,
 bytes on the wire, active silos and, with DP on, the cumulative ε; with
 ``--algo both`` it asserts the §3.2 byte ordering (SFVI-Avg ships fewer
 bytes per round than SFVI when ``--local-steps > 1``).
 
-The flags are the subset of ``repro.federated.run`` this slice supports.
+``--global-family``/``--local-family`` (with ``--*-family-kwargs``) swap
+the model's variational families for registered ones (diag, cholesky,
+lowrank, conditional, batched_diag); a full-covariance global family's
+SFVI-Avg barycenter takes its square roots from the Newton–Schulz step
+kernel on the fused wire. A model without an eval hook prints no eval
+line.
+
+The flags are the subset of ``repro.federated.run`` the port supports.
 """
 from __future__ import annotations
 
@@ -27,6 +38,16 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--model", default="hier_bnn", choices=model_names())
     ap.add_argument("--model-kwargs", default="", metavar="JSON",
                     help="JSON dict forwarded to the registry builder")
+    ap.add_argument("--global-family", default=None, metavar="NAME",
+                    help="override the model's q(Z_G) family with a registered one "
+                         "(diag, cholesky, lowrank, ...); default: the model's own")
+    ap.add_argument("--global-family-kwargs", default="", metavar="JSON",
+                    help='JSON kwargs for --global-family (e.g. \'{"rank": 2}\' for lowrank)')
+    ap.add_argument("--local-family", default=None, metavar="NAME",
+                    help="override the model's q(Z_L | Z_G) family (conditional, "
+                         "batched_diag, ...)")
+    ap.add_argument("--local-family-kwargs", default="", metavar="JSON",
+                    help="JSON kwargs for --local-family")
     ap.add_argument("--silos", type=int, default=8)
     ap.add_argument("--rounds", type=int, default=5)
     ap.add_argument("--local-steps", type=int, default=4)
@@ -37,6 +58,7 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--aggregator", default="mean", choices=["mean", "trimmed"])
     ap.add_argument("--trim-frac", type=float, default=0.1)
     ap.add_argument("--compress", default="none", choices=["none", "int8"])
+    ap.add_argument("--eta-mode", default="barycenter", choices=["barycenter", "param"])
     ap.add_argument("--dp-noise", type=float, default=0.0,
                     help="Gaussian noise multiplier z (0 = DP off)")
     ap.add_argument("--dp-clip", type=float, default=1.0,
@@ -76,8 +98,16 @@ def build_server(args, algorithm: str, bundle, device):
         aggregator=(TrimmedMeanAggregator(args.trim_frac)
                     if args.aggregator == "trimmed" else MeanAggregator()),
         compressor=Int8Compressor() if args.compress == "int8" else NoCompression(),
-        wire=args.wire, privacy=privacy, seed=args.seed, strategy=algorithm,
-        device=device)
+        eta_mode=args.eta_mode, wire=args.wire, privacy=privacy, seed=args.seed,
+        strategy=algorithm, device=device)
+
+
+def _family_spec(name, kwargs_json):
+    from repro_torch.core.family import FamilySpec
+
+    if name is None:
+        return None
+    return FamilySpec(name, json.loads(kwargs_json or "{}"))
 
 
 def _log_round(total_silos: int):
@@ -93,10 +123,14 @@ def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     from repro_torch.device import resolve_device
     from repro_torch.federated.scheduler import RoundScheduler, algorithm_label
+    from repro_torch.models.paper.registry import apply_family_spec
 
     device = resolve_device(args.device)
     bundle = get_model(args.model).build(
         args.seed, args.silos, device=device, **json.loads(args.model_kwargs or "{}"))
+    bundle = apply_family_spec(
+        bundle, global_family=_family_spec(args.global_family, args.global_family_kwargs),
+        local_family=_family_spec(args.local_family, args.local_family_kwargs))
     algos = ["sfvi", "sfvi_avg"] if args.algo == "both" else [args.algo]
     per_round = {}
     for algo in algos:
@@ -118,8 +152,9 @@ def main(argv=None) -> int:
             eps, order = server.accountant.epsilon(args.dp_delta)
             print(f"  privacy: ({eps:.3f}, {args.dp_delta:g})-DP after "
                   f"{server.accountant.steps} exchanges (RDP order {order})")
-        for k, v in bundle.eval_fn(server).items():
-            print(f"  {k}: {v:.3f}")
+        if bundle.eval_fn is not None:
+            for k, v in bundle.eval_fn(server).items():
+                print(f"  {k}: {v:.3f}")
         per_round[algo] = server.comm.per_round
     if len(per_round) == 2:
         sfvi_pr, avg_pr = per_round["sfvi"], per_round["sfvi_avg"]

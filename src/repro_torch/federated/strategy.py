@@ -27,8 +27,9 @@ from typing import Any, Callable, ClassVar, Dict, Optional, Tuple
 import torch
 from torch.func import grad_and_value
 
-from repro_torch.core.barycenter import family_barycenter
+from repro_torch.core.barycenter import family_barycenter, sqrtm_newton_schulz
 from repro_torch.core.family import eps_shape as family_eps_shape
+from repro_torch.kernels import wire as wire_kernels
 from repro_torch.optim.base import apply_updates
 from repro_torch.tree import tree_leaves, tree_map
 
@@ -288,8 +289,13 @@ class SFVIAvgStrategy(ServerStrategy):
         if ctx.eta_mode == "param":
             eta_new = combined["eta_G"]
         else:
-            # W2 barycenter in moment space through the family's bridge.
+            # W2 barycenter in moment space through the family's bridge; on
+            # the fused wire a full-covariance merge takes its square roots
+            # from the Newton–Schulz step kernel.
             eta_shipped = ctx.wire.unpack(shipped)["eta_G"]
+            sqrtm = (wire_kernels.sqrtm_newton_schulz_fused if ctx.fused
+                     else sqrtm_newton_schulz)
             eta_new = family_barycenter(
-                ctx.problem.global_family, eta_shipped, w_full, ctx.aggregator)
+                ctx.problem.global_family, eta_shipped, w_full, ctx.aggregator,
+                sqrtm=sqrtm)
         return theta_new, eta_new, opt_server

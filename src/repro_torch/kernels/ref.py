@@ -1,8 +1,10 @@
-"""Plain PyTorch versions of the wire kernels (the correctness contract).
+"""Plain PyTorch versions of the port's kernels (the correctness contract).
 
-Torch twins of ``repro/kernels/ref.py:62-146``. Each is the mathematical
-definition, written for clarity, not speed: the kernel wrappers in
-:mod:`repro_torch.kernels.wire` take them for CPU tensors, the CPU tests
+Torch twins of ``repro/kernels/ref.py:47-164``: the wire kernels, the
+Newton–Schulz step and the reparam + STL log q forward and backward.
+Each is the mathematical definition, written for clarity, not speed: the
+kernel wrappers (:mod:`repro_torch.kernels.wire`,
+:mod:`repro_torch.kernels.reparam`) take them for CPU tensors, the CPU tests
 hold them against the reference's Pallas kernels, and ``chip_smoke.py``
 holds each CUDA kernel against them on the card.
 
@@ -12,9 +14,12 @@ tensor) instead of a threefry draw from per-row keys.
 """
 from __future__ import annotations
 
-from typing import Optional
+import math
+from typing import Optional, Tuple
 
 import torch
+
+_HALF_LOG_2PI = 0.5 * math.log(2.0 * math.pi)
 
 
 def wire_upload_ref(
@@ -85,3 +90,52 @@ def masked_trimmed_mean_ref(x: torch.Tensor, weights: torch.Tensor,
 def int8_rows_dequant_ref(q: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
     """The in-kernel dequantize: q·scale per row, in f32."""
     return q.float() * scales.float()[:, None]
+
+
+def newton_schulz_step_ref(y: torch.Tensor, z: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One Newton–Schulz step on (..., d, d): t = ½(3I − zy); (y t, t z)."""
+    eye3 = 3.0 * torch.eye(y.shape[-1], dtype=y.dtype, device=y.device)
+    t = 0.5 * (eye3 - z @ y)
+    return y @ t, t @ z
+
+
+def newton_schulz_sqrtm_ref(mat: torch.Tensor, num_iters: int = 25,
+                            step=newton_schulz_step_ref) -> torch.Tensor:
+    """PSD square root of each (d, d) matrix of ``mat`` (leading axes kept):
+    Frobenius-normalize per matrix, start from z = I, run ``num_iters``
+    steps on one contiguous (B, d, d) batch, rescale by √norm.
+
+    ``step`` is the step function: this plain one, or the CUDA kernel's
+    wrapper (:func:`repro_torch.kernels.wire.sqrtm_newton_schulz_fused`).
+    """
+    shape, d = mat.shape, mat.shape[-1]
+    m = mat.reshape(-1, d, d)
+    norm = torch.sqrt(torch.sum(m * m, dim=(-2, -1), keepdim=True)) + 1e-12
+    y = (m / norm).contiguous()
+    z = torch.eye(d, dtype=m.dtype, device=m.device).expand_as(m).contiguous()
+    for _ in range(num_iters):
+        y, z = step(y, z)
+    return (y * torch.sqrt(norm)).reshape(shape)
+
+
+def reparam_stl_ref(mu: torch.Tensor, log_sigma: torch.Tensor,
+                    eps: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """z = μ + e^{log σ}·ε in μ's dtype; logq = Σ(−½ε² − log σ − ½log 2π) in f32."""
+    ls = log_sigma.float()
+    e = eps.float()
+    z = (mu.float() + torch.exp(ls) * e).to(mu.dtype)
+    logq = torch.sum(-0.5 * e * e - ls - _HALF_LOG_2PI)
+    return z, logq
+
+
+def reparam_stl_bwd_ref(log_sigma: torch.Tensor, eps: torch.Tensor, dz: torch.Tensor,
+                        dlq: torch.Tensor):
+    """The STL VJP (``repro/kernels/reparam.py:39-54``):
+    dμ = dz; d log σ = dz·σ·ε − dlq; dε = dz·σ − dlq·ε (f32 math)."""
+    ls = log_sigma.float()
+    e = eps.float()
+    g = dz.float()
+    lq = dlq.float()
+    sig = torch.exp(ls)
+    return (g.to(log_sigma.dtype), (g * sig * e - lq).to(log_sigma.dtype),
+            (g * sig - lq * e).to(eps.dtype))

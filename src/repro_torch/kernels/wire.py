@@ -1,8 +1,8 @@
 """Fused wire kernels of the federated round: CUDA on the card, plain on the CPU.
 
-The two kernels of the ``wire="fused"`` path, hand-written in CUDA C++
-for Hopper (``repro_torch/csrc/wire.cu``), replacing the Pallas kernels
-of ``repro/kernels/wire.py``:
+The three kernels of the ``wire="fused"`` path, hand-written in CUDA C++
+for Hopper (``repro_torch/csrc/wire.cu``, ``csrc/newton_schulz.cu``),
+replacing the Pallas kernels of ``repro/kernels/wire.py``:
 
   * :func:`fused_upload` (replaces ``wire.py:137 fused_upload``) — per
     silo row: delta from the reference, L2 clip, DP noise, reference
@@ -11,11 +11,16 @@ of ``repro/kernels/wire.py``:
   * :func:`fused_combine` (replaces ``wire.py:242 fused_combine``) —
     weighted mean or trimmed mean over the silo axis, with an optional
     in-kernel int8 dequantize.
+  * :func:`newton_schulz_step` (replaces ``wire.py:310
+    newton_schulz_step``) — one Newton–Schulz iteration on a batch of
+    (d, d) pairs; :func:`sqrtm_newton_schulz_fused` (``wire.py:335``)
+    drives it for the full-covariance barycenter's square roots.
 
 Dispatch is by the tensor's device and nothing else: a CPU tensor takes
 the plain version in :mod:`repro_torch.kernels.ref`; a CUDA tensor
 launches the kernel or raises. ``LAUNCHES`` counts kernel launches (one
-per launch, on the CUDA route only), so a run can show that its main
+per launch, on the CUDA route only; one per step for the Newton–Schulz
+step, whose two launches are one call), so a run can show that its main
 path went through the kernels.
 
 The DP noise is an input: a ``(J, P)`` float32 N(0, I) tensor (the
@@ -30,7 +35,7 @@ import torch
 
 from repro_torch.kernels import ref as _ref
 
-LAUNCHES: Dict[str, int] = {"fused_upload": 0, "fused_combine": 0}
+LAUNCHES: Dict[str, int] = {"fused_upload": 0, "fused_combine": 0, "newton_schulz_step": 0}
 
 MAX_TRIM_ROWS = 1024  # the trimmed combine is O(J^2) per column
 
@@ -43,7 +48,8 @@ _SIGNATURES = {
     "repro_fused_combine_i8": [_c_void_p] * 4 + [_c_int, _c_int, _c_int,
                                                  _c_float, _c_void_p],
 }
-_LIB = None
+_NS_SIGNATURES = {"repro_newton_schulz_step": [_c_void_p] * 5 + [_c_int, _c_int, _c_void_p]}
+MAX_NS_BATCH = 32767  # grid z of the step's second launch is 2B <= 65535
 
 
 def reset_launches() -> None:
@@ -52,16 +58,15 @@ def reset_launches() -> None:
 
 
 def _lib():
-    global _LIB
-    if _LIB is None:
-        from repro_torch.kernels import build
+    from repro_torch.kernels import build
 
-        lib = build.load("wire")
-        for fn, argtypes in _SIGNATURES.items():
-            getattr(lib, fn).argtypes = argtypes
-            getattr(lib, fn).restype = _c_int
-        _LIB = lib
-    return _LIB
+    return build.load("wire", _SIGNATURES)
+
+
+def _ns_lib():
+    from repro_torch.kernels import build
+
+    return build.load("newton_schulz", _NS_SIGNATURES)
 
 
 def _check(t: torch.Tensor, name: str, dtype: torch.dtype, shape, device) -> None:
@@ -182,3 +187,38 @@ def fused_combine(
         _raise_on(err, "fused_combine")
         LAUNCHES["fused_combine"] += 1
     return out
+
+
+def newton_schulz_step(y: torch.Tensor, z: torch.Tensor):
+    """One fused Newton–Schulz step on (B, d, d) float32 pairs:
+    ``t = 0.5 (3I − z y)``; returns ``(y t, t z)`` as new tensors."""
+    if not _on_cuda(y):
+        return _ref.newton_schulz_step_ref(y, z)
+    if y.dim() != 3:
+        raise ValueError(f"y must be (B, d, d), got shape {tuple(y.shape)}")
+    B, d, _ = y.shape
+    dev = y.device
+    _check(y, "y", torch.float32, (B, d, d), dev)
+    _check(z, "z", torch.float32, (B, d, d), dev)
+    if B > MAX_NS_BATCH:
+        raise ValueError(f"the Newton–Schulz kernel takes B <= {MAX_NS_BATCH}, got {B}")
+    t, yo, zo = (torch.empty((B, d, d), dtype=torch.float32, device=dev) for _ in range(3))
+    if B and d:
+        err = _ns_lib().repro_newton_schulz_step(
+            _ptr(y), _ptr(z), _ptr(t), _ptr(yo), _ptr(zo), B, d,
+            torch.cuda.current_stream(dev).cuda_stream)
+        _raise_on(err, "newton_schulz_step")
+        LAUNCHES["newton_schulz_step"] += 1
+    return yo, zo
+
+
+def sqrtm_newton_schulz_fused(mat: torch.Tensor, num_iters: int = 25) -> torch.Tensor:
+    """PSD square root of each (d, d) matrix of ``mat`` through the step kernel.
+
+    Drop-in for :func:`repro_torch.core.barycenter.sqrtm_newton_schulz`
+    (``wire.py:335``): per matrix, Frobenius-normalize, start from
+    ``z = I``, run ``num_iters`` steps, rescale by √norm, in plain torch
+    around the kernel. ``mat`` is (d, d) or carries leading batch axes,
+    which run as one batched step (the reference vmaps its kernel).
+    """
+    return _ref.newton_schulz_sqrtm_ref(mat, num_iters, step=newton_schulz_step)

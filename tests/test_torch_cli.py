@@ -49,3 +49,30 @@ def test_cli_dp_int8_trimmed_partial_reports_epsilon(capsys):
     assert len(elbos) == 2 and all(math.isfinite(e) for e in elbos)
     assert len(re.findall(r"eps=\s*[\d.]+", out)) == 2
     assert "active=2/3" in out and "-DP after 2 exchanges" in out
+
+
+_EVAL_LINE = re.compile(r"^  [a-z_]+: -?\d+\.\d{3}$", re.M)
+
+
+def test_cli_glmm_cholesky_prints_no_eval_line(capsys):
+    """glmm has no eval hook (``eval_fn=None``): the run ends without one."""
+    assert cli.main(["--device", "cpu", "--model", "glmm", "--global-family", "cholesky",
+                     "--model-kwargs", '{"num_children": 24}', "--silos", "3",
+                     "--rounds", "1", "--local-steps", "2"]) == 0
+    out = capsys.readouterr().out
+    assert "== SFVI: glmm" in out and "== SFVI-Avg: glmm" in out
+    elbos = _elbos(out)
+    assert len(elbos) == 2 and all(math.isfinite(e) for e in elbos)
+    assert not _EVAL_LINE.search(out)
+    # eta_G = (L_packed 10, log_sigma 5, mu 5) is 80 B a silo each way:
+    # SFVI 2 steps x 3 silos x (80 up + 80 down), SFVI-Avg 3 x (80 + 80)
+    assert "bytes/round: SFVI=960  SFVI-Avg=480" in out
+
+
+def test_cli_toy_lowrank_family_flags_and_eval_line(capsys):
+    assert cli.main(["--device", "cpu", "--model", "toy", "--silos", "3", "--rounds", "1",
+                     "--local-steps", "2", "--algo", "sfvi_avg", "--global-family",
+                     "lowrank", "--global-family-kwargs", '{"rank": 1}',
+                     "--eta-mode", "param"]) == 0
+    out = capsys.readouterr().out
+    assert len(_EVAL_LINE.findall(out)) == 1 and "abs_error_vs_exact:" in out

@@ -82,8 +82,13 @@ def test_conditional_gaussian_matches_reference(use_coupling):
 
 
 def test_conditional_gaussian_chol_is_not_ported():
-    with pytest.raises(NotImplementedError, match="use_chol"):
-        tfam.ConditionalGaussian(3, 2, use_chol=True)
+    """Named in the first slice, where ``use_chol=True`` raised. It is ported
+    now: the family builds and carries the reference's unitriangular block
+    (densities: ``test_torch_families_full.py``)."""
+    fam = tfam.ConditionalGaussian(3, 2, use_chol=True)
+    assert fam.param_shapes() == jfam.ConditionalGaussian(3, 2, use_chol=True).param_shapes()
+    p = fam.init(torch.Generator())
+    assert p["L_packed"].shape == (3,) and p["L_packed"].dtype == torch.float32
 
 
 def test_treespec_pack_column_order_matches_reference():

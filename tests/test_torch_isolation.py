@@ -30,8 +30,9 @@ def _port_modules():
 
 def test_port_imports_with_jax_blocked():
     mods = _port_modules()
-    assert "repro_torch.federated.runtime" in mods
-    assert "repro_torch.kernels.wire" in mods
+    for name in ("federated.runtime", "kernels.wire", "kernels.reparam", "kernels.build",
+                 "models.paper.glmm", "core.barycenter", "data.synthetic"):
+        assert f"repro_torch.{name}" in mods
     code = (
         "import sys, importlib\n"
         "sys.modules['jax'] = None\n"
@@ -93,6 +94,9 @@ def test_entry_points_default_to_cuda(monkeypatch):
 def test_kernel_wrappers_refuse_other_devices():
     from repro_torch.kernels import wire
 
+    y = torch.zeros((1, 3, 3), device="meta")
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        wire.newton_schulz_step(y, y)
     x = torch.zeros((2, 3), device="meta")
     with pytest.raises(ValueError, match="cuda or cpu"):
         wire.fused_upload(x, mask=torch.ones(2, device="meta"))

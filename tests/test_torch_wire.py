@@ -95,7 +95,8 @@ def test_fused_upload_matches_reference(shape, cfg, pattern):
         assert got[0].dtype == torch.int8 and got[1].shape == (J,)
     else:
         _close(got, want)
-    assert twire.LAUNCHES == {"fused_upload": 0, "fused_combine": 0}  # CPU: no launch
+    assert twire.LAUNCHES == {"fused_upload": 0, "fused_combine": 0,  # CPU: no launch
+                              "newton_schulz_step": 0}
 
 
 def test_fused_upload_inactive_zero_row_quantizes_to_zero():
