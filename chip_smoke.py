@@ -8,9 +8,9 @@ and nothing of the JAX package. Phases, in order (any failure exits
 non-zero):
 
   1. the card's name and power limit (``nvidia-smi``); build every CUDA
-     kernel of the port from ``src/repro_torch/csrc`` with ``nvcc``, one
-     process per source, all started together, and print the build
-     seconds; check that float32 matmuls run in full float32 (no TF32);
+     kernel of the port from ``src/repro_torch/csrc`` (six sources) with
+     ``nvcc``, one process per source, all started together, and print the
+     build seconds; check that float32 matmuls run in full float32 (no TF32);
   2. every kernel against its plain PyTorch version on the card, with the
      tolerance printed beside the error: the wire kernels at the hier_bnn
      main path's shapes (J=10, P=100,354) and at ragged ones; the
@@ -19,7 +19,16 @@ non-zero):
      f32 and bf16. Then the whole port on the card (fused wire, CUDA
      kernels) against the port on the CPU (flat wire, plain stages) on one
      injected random stream: hier_bnn at a small width, and the GLMM +
-     Cholesky global family at full width, SFVI and SFVI-Avg;
+     Cholesky global family at full width, SFVI and SFVI-Avg. Then the
+     backbone's kernels against their plain versions in bf16 and f32:
+     flash attention at zamba2's (B, S, H/KV, hd) = (8, 64, 32/32, 112) and
+     (4, 4,096, 32/32, 112), qwen3's (8, 512, 32/8, 128), a decode shape
+     (Sq = 1, q_offset), window 128, non-causal and S = 1,000; GLA at
+     (8, 64) and (4, 4,096) x 112 heads x 64/64 (q, k a stride-0 group as
+     mamba2 gives them), S = 1,000 and dv = 65; RMSNorm at D = 3,584,
+     7,168, 2,560 and 128 with ragged row counts. And the backbone on the
+     card against the backbone on the CPU in f32: zamba2-7b at full width
+     with one hybrid unit (6 layers), B = 2, prompt 32, greedy gen 4;
   3. the main paths at full width, each through ``Server(wire="fused")``
      with the kernels' launch counters set to 0 just before each run and
      read just after, and the bytes per round checked:
@@ -32,18 +41,31 @@ non-zero):
        low-rank global family, unitriangular conditional local family,
        SFVI-Avg + trimmed mean (0.2) 2 rounds;
      then 2 more rounds of each run under ``torch.profiler`` for the
-     device's busy and idle share;
+     device's busy and idle share. Then the backbone's serve path
+     (``repro_torch.launch.serve_backbone.serve``) at full width in bf16,
+     with the flash-attention, GLA and RMSNorm launch counters set to 0
+     just before each run and read just after: zamba2-7b at full depth (81
+     layers; batch 8, prompt 64, gen 32, 4 silos: the JAX CLI's defaults),
+     zamba2-7b at 12 layers (batch 4, prompt 4,096, gen 8), qwen3-4b at 4
+     layers (batch 8, prompt 512, gen 16); prefill and decode times, peak
+     memory, then one more prefill and two more decode steps under
+     ``torch.profiler``;
   4. timings (CUDA events, median of 20 single launches, each queued
      behind a sleep kernel so host overhead is excluded) of each kernel,
      its plain version and, where one exists, PyTorch's own call(s)
      computing the same function, beside the bound: the larger of bytes
-     at 3.35 TB/s and float32 operations at 67 TFLOP/s.
+     at 3.35 TB/s and operations at 67 TFLOP/s for float32 inputs, at
+     989 TFLOP/s (bf16 dense tensor cores) for bfloat16 inputs. The
+     backbone's kernels at their serve shapes: flash attention against
+     ``F.scaled_dot_product_attention``, RMSNorm against ``F.rms_norm``,
+     GLA against no library call.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import statistics
@@ -57,6 +79,7 @@ SRC = ROOT / "src"
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 F32_FLOPS = 67e12  # H100 SXM f32, outside the tensor cores
+BF16_FLOPS = 989e12  # H100 SXM bf16 dense tensor cores (NVIDIA data sheet)
 MAIN_J, MAIN_P = 10, 100_354
 GLMM_CHILDREN, GLMM_J, GLMM_K = 536, 2, 25
 NS_STEPS_PER_MERGE = 50 * 2 * 40  # fixed-point steps x (root + batched roots) x NS steps
@@ -373,6 +396,161 @@ def check_port_cuda_vs_cpu(np, torch):
 
 
 # ---------------------------------------------------------------------------
+# Phase 2c: the backbone's kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+DTYPE_TOL = {"float32": 3e-5, "bfloat16": 2e-2}  # x (1 + max|plain|); the CPU tests' tolerances
+FLASH_CHECKS = [
+    # (label, B, Sq, Skv, H, KV, hd, causal, window, q_offset, on the serve path)
+    ("zamba2_prefill_64", 8, 64, 64, 32, 32, 112, True, None, 0, True),
+    ("zamba2_prefill_4096", 4, 4096, 4096, 32, 32, 112, True, None, 0, True),
+    ("qwen3_prefill_512", 8, 512, 512, 32, 8, 128, True, None, 0, True),
+    ("decode_q_offset", 8, 1, 4104, 32, 8, 128, True, None, 4103, False),
+    ("window_128", 2, 1000, 1000, 32, 8, 128, True, 128, 0, False),
+    ("non_causal", 2, 256, 384, 32, 8, 128, False, None, 0, False),
+    ("ragged_1000", 2, 1000, 1000, 32, 32, 112, True, None, 0, False),
+]
+GLA_CHECKS = [
+    # (label, B, S, H, dk, dv, q/k one group broadcast over heads, on the serve path)
+    ("zamba2_prefill_64", 8, 64, 112, 64, 64, True, True),
+    ("zamba2_prefill_4096", 4, 4096, 112, 64, 64, True, True),
+    ("ragged_1000", 2, 1000, 112, 64, 64, True, False),
+    ("dv65_mlstm_v_aug", 2, 300, 8, 64, 65, False, False),
+]
+RMS_CHECKS = [
+    # (label, rows, D): ragged row counts at the serve path's widths
+    ("zamba2_d_model", 4 * 4096 + 3, 3584),
+    ("mamba2_out_norm", 515, 7168),
+    ("qwen3_d_model", 4099, 2560),
+    ("qwen3_qk_norm", 8 * 512 * 32 + 5, 128),
+]
+
+
+def _check_line(label, err, want):
+    tol = DTYPE_TOL[str(want.dtype).replace("torch.", "")] * (1.0 + float(want.float().abs().max()))
+    return err <= tol, f"max_abs={err:.3e} (<= {tol:.2e})"
+
+
+def gla_inputs(torch, B, S, H, dk, dv, shared, gen, dtype):
+    """q, k (a (B, S, dk) group expanded over heads when ``shared``), v, log_a f32."""
+    if shared:
+        q, k = (0.5 * torch.randn((B, S, 1, dk), generator=gen, device=DEVICE)
+                for _ in range(2))
+        q, k = q.to(dtype).expand(B, S, H, dk), k.to(dtype).expand(B, S, H, dk)
+    else:
+        q, k = ((0.5 * torch.randn((B, S, H, dk), generator=gen, device=DEVICE)).to(dtype)
+                for _ in range(2))
+    v = torch.randn((B, S, H, dv), generator=gen, device=DEVICE).to(dtype)
+    log_a = -0.1 * torch.randn((B, S, H), generator=gen, device=DEVICE).abs()
+    return q, k, v, log_a
+
+
+def check_backbone_kernels(torch, attention, gla, rmsnorm, ref, gen):
+    """Each kernel against its plain version, bf16 and f32; returns each
+    kernel's largest error over its serve-path shapes in bf16."""
+    worst = {"flash_attention": 0.0, "gla": 0.0, "rmsnorm": 0.0}
+    for label, B, Sq, Skv, H, KV, hd, causal, window, off, main in FLASH_CHECKS:
+        for dtype in (torch.bfloat16, torch.float32):
+            q = torch.randn((B, Sq, H, hd), generator=gen, device=DEVICE).to(dtype)
+            k, v = (torch.randn((B, Skv, KV, hd), generator=gen, device=DEVICE).to(dtype)
+                    for _ in range(2))
+            got = attention.flash_attention(q, k, v, causal=causal, window=window, q_offset=off)
+            want = ref.flash_attention_plain(q, k, v, causal=causal, window=window, q_offset=off)
+            sync(torch)
+            err = float((got.float() - want.float()).abs().max())
+            ok, line = _check_line(label, err, want)
+            print(f"  flash_attention {label:<20} ({B},{Sq},{Skv},{H}/{KV},{hd}) "
+                  f"{str(dtype)[6:]:<8} causal={causal} window={window} q_offset={off}: {line}",
+                  flush=True)
+            assert ok and got.dtype == dtype, (label, dtype)
+            if main and dtype == torch.bfloat16:
+                worst["flash_attention"] = max(worst["flash_attention"], err)
+    for label, B, S, H, dk, dv, shared, main in GLA_CHECKS:
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v, log_a = gla_inputs(torch, B, S, H, dk, dv, shared, gen, dtype)
+            got = gla.gla(q, k, v, log_a)
+            want = ref.gla_plain(q, k, v, log_a, chunk=gla.CHUNK)
+            sync(torch)
+            err = float((got.float() - want.float()).abs().max())
+            ok, line = _check_line(label, err, want)
+            print(f"  gla {label:<20} ({B},{S},{H},{dk},{dv}) {str(dtype)[6:]:<8} "
+                  f"shared q/k={shared}: {line}", flush=True)
+            assert ok and got.dtype == dtype, (label, dtype)
+            if main and dtype == torch.bfloat16:
+                worst["gla"] = max(worst["gla"], err)
+    for label, rows, D in RMS_CHECKS:
+        for dtype, wdtype in ((torch.bfloat16, torch.bfloat16), (torch.float32, torch.float32),
+                              (torch.bfloat16, torch.float32)):
+            x = torch.randn((rows, D), generator=gen, device=DEVICE).to(dtype)
+            w = (1.0 + 0.2 * torch.randn((D,), generator=gen, device=DEVICE)).to(wdtype)
+            got = rmsnorm.rmsnorm(x, w, 1e-6)
+            want = ref.rmsnorm_plain(x, w, 1e-6)
+            sync(torch)
+            err = float((got.float() - want.float()).abs().max())
+            ok, line = _check_line(label, err, want)
+            print(f"  rmsnorm {label:<16} ({rows},{D}) x {str(dtype)[6:]:<8} "
+                  f"w {str(wdtype)[6:]:<8}: {line}", flush=True)
+            assert ok and got.dtype == dtype, (label, dtype)
+            if dtype == wdtype == torch.bfloat16:
+                worst["rmsnorm"] = max(worst["rmsnorm"], err)
+    return worst
+
+
+# ---------------------------------------------------------------------------
+# Phase 2d: the backbone on the card against the backbone on the CPU
+# ---------------------------------------------------------------------------
+
+
+def greedy(torch, cfg, theta, eta_G, eta_L, tokens, silos, gen_len):
+    """Serve prefill + greedy decode; returns (every step's logits, tokens)."""
+    from repro_torch.launch import steps as S
+
+    prefill = S.make_serve_prefill(cfg, silos, max_len=tokens.shape[1] + gen_len)
+    decode = S.make_serve_decode(cfg, silos)
+    with torch.inference_mode():
+        logits, cache = prefill(theta, eta_G, eta_L, {"tokens": tokens})
+        out_logits, out_tok = [logits.float().cpu()], [torch.argmax(logits[:, -1], -1)]
+        for _ in range(gen_len - 1):
+            logits, cache = decode(theta, eta_G, eta_L, out_tok[-1][:, None], cache)
+            out_logits.append(logits.float().cpu())
+            out_tok.append(torch.argmax(logits[:, -1], -1))
+    return out_logits, torch.stack([t.cpu() for t in out_tok], 1)
+
+
+def check_backbone_cuda_vs_cpu(torch):
+    """zamba2-7b at full width, one hybrid unit (6 layers: 5 mamba2 + the
+    shared attention), f32, B = 2, prompt 32, greedy gen 4: the same
+    weights (drawn on the CPU) through the port on the card (kernels) and
+    on the CPU (plain versions). Logits within 1e-3 relative (max abs error
+    over max |logit|), and the same tokens."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import steps as S
+    from repro_torch.models.backbone import transformer as T
+    from repro_torch.tree import tree_map
+
+    cfg = dataclasses.replace(get_config("zamba2-7b"), num_layers=6, dtype="float32")
+    g = torch.Generator().manual_seed(3)
+    theta = T.init_params(g, cfg)
+    eta_G, eta_L = S.init_eta_G(g, cfg), S.init_eta_L(g, cfg, 2)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 32), generator=g)
+    t0 = time.perf_counter()
+    cpu_logits, cpu_tok = greedy(torch, cfg, theta, eta_G, eta_L, tokens, 2, 4)
+    cpu_s = time.perf_counter() - t0
+    to_dev = lambda tree: tree_map(lambda a: a.to(DEVICE), tree)  # noqa: E731
+    dev_logits, dev_tok = greedy(torch, cfg, to_dev(theta), to_dev(eta_G), to_dev(eta_L),
+                                 tokens.to(DEVICE), 2, 4)
+    rel = max(float((a - b).abs().max() / b.abs().max())
+              for a, b in zip(dev_logits, cpu_logits, strict=True))
+    same = bool(torch.equal(dev_tok, cpu_tok))
+    print(f"  backbone {DEVICE} vs cpu [zamba2-7b, 6 layers, f32, B=2, prompt 32, greedy 4]: "
+          f"logits max_rel={rel:.2e} (<= 1e-3), tokens equal={same} {dev_tok[0].tolist()} "
+          f"(cpu side {cpu_s:.1f} s)", flush=True)
+    assert all(bool(torch.isfinite(a).all()) for a in dev_logits)
+    assert rel <= 1e-3 and same
+    return {"max_rel": rel, "tokens_equal": same}
+
+
+# ---------------------------------------------------------------------------
 # Phase 3: the main path at full width
 # ---------------------------------------------------------------------------
 
@@ -533,6 +711,112 @@ def main_path(np, torch, wire, reparam, in_dim=784, hidden=64):
 
 
 # ---------------------------------------------------------------------------
+# Phase 3b: the backbone's serve path at full width
+# ---------------------------------------------------------------------------
+
+SERVE_RUNS = [
+    # (label, arch, layers, batch, prompt, gen, silos)
+    ("zamba2-7b 81 layers", "zamba2-7b", 81, 8, 64, 32, 4),
+    ("zamba2-7b 12 layers, prompt 4096", "zamba2-7b", 12, 4, 4096, 8, 4),
+    ("qwen3-4b 4 layers", "qwen3-4b", 4, 8, 512, 16, 4),
+]
+BACKBONE_COUNTS = ("flash_attention", "gla", "rmsnorm")
+
+
+def backbone_launches_per_pass(cfg):
+    """Kernel launches of one prefill and of one decode step, from the config."""
+    kinds = cfg.block_pattern
+    n_attn, n_mamba = kinds.count("attn"), kinds.count("mamba2")
+    norms = 2 * n_mamba + n_attn * (2 if cfg.d_ff else 1) + (2 * n_attn if cfg.qk_norm else 0) + 1
+    prefill = {"flash_attention": n_attn, "gla": n_mamba, "rmsnorm": norms}
+    decode = {"flash_attention": 0, "gla": 0, "rmsnorm": norms}
+    return prefill, decode
+
+
+def counters(modules):
+    return {k: n for m in modules for k, n in m.LAUNCHES.items()}
+
+
+def profile_serve(torch, run, steps=2) -> dict:
+    """One more prefill of the same prompt, then ``steps`` more decode steps
+    of a finished serve run, each under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    st = run.state
+    out = {}
+    with torch.inference_mode():
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            st["prefill"](st["theta"], st["eta_G"], st["eta_L"], st["prompt"])
+            sync(torch)
+            wall = time.perf_counter() - t0
+        out["prefill"] = profile_summary(prof, wall, top=12)
+        tok, cache = st["tok"], st["cache"]
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                logits, cache = st["decode"](st["theta"], st["eta_G"], st["eta_L"], tok[:, None],
+                                             cache)
+                tok = torch.argmax(logits[:, -1], dim=-1)
+            sync(torch)
+            wall = time.perf_counter() - t0
+        out["decode"] = {"steps": steps, **profile_summary(prof, wall, top=12)}
+    return out
+
+
+def serve_runs(torch, kernel_modules, other_modules):
+    """Each serve run with the backbone counters at 0 just before and read
+    just after; asserts the launches each kernel owes the run, finite
+    logits, and that no other kernel launched."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve_backbone import serve
+
+    totals = {k: 0 for k in BACKBONE_COUNTS}
+    results = []
+    for label, arch, layers, B, prompt, gen_len, silos in SERVE_RUNS:
+        cfg = dataclasses.replace(get_config(arch), num_layers=layers)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        sync(torch)
+        for m in kernel_modules + other_modules:
+            m.reset_launches()
+        run = serve(cfg, batch=B, prompt_len=prompt, gen=gen_len, silos=silos,
+                    device=torch.device(DEVICE))
+        sync(torch)
+        counts = counters(kernel_modules)
+        others = counters(other_modules)
+        peak = torch.cuda.max_memory_allocated()
+        per_prefill, per_decode = backbone_launches_per_pass(cfg)
+        want = {k: per_prefill[k] + (gen_len - 1) * per_decode[k] for k in BACKBONE_COUNTS}
+        from repro_torch.models.backbone.transformer import param_count
+
+        res = {
+            "serve": label, "arch": arch, "layers": layers, "batch": B, "prompt": prompt,
+            "gen": gen_len, "silos": silos, "params": param_count(run.state["theta"]),
+            "prefill_ms": run.prefill_s * 1e3, "prefill_tok_s": B * prompt / run.prefill_s,
+            "decode_ms_per_token": run.decode_s * 1e3 / (gen_len - 1),
+            "decode_tok_s": B * (gen_len - 1) / run.decode_s,
+            "peak_gb": peak / 1e9, "launches": counts,
+            "tokens_first_request": run.tokens[0].tolist(),
+        }
+        print(f"  {label}: prefill {res['prefill_ms']:.1f} ms ({res['prefill_tok_s']:.0f} tok/s), "
+              f"decode {res['decode_ms_per_token']:.2f} ms/token ({res['decode_tok_s']:.0f} tok/s), "
+              f"peak {res['peak_gb']:.2f} GB, params {res['params']:,}, launches={counts}",
+              flush=True)
+        assert bool(torch.isfinite(run.logits.float()).all()), label
+        assert tuple(run.tokens.shape) == (B, gen_len), label
+        assert counts == want, (label, counts, want)
+        assert not any(others.values()), (label, others)
+        for k in totals:
+            totals[k] += counts[k]
+        res["profile"] = profile_serve(torch, run)
+        results.append(res)
+        del run
+    assert all(totals[k] > 0 for k in BACKBONE_COUNTS), totals
+    return totals, results
+
+
+# ---------------------------------------------------------------------------
 # Phase 4: timings
 # ---------------------------------------------------------------------------
 
@@ -555,7 +839,7 @@ def device_ms(torch, fn, reps=20, warmup=3):
     return statistics.median(times)
 
 
-def timings(np, torch, wire, ref, reparam, gen):
+def timings(np, torch, wire, ref, reparam, attention, gla, rmsnorm, gen):
     J, P = MAIN_J, MAIN_P
     x = torch.randn((J, P), generator=gen, device=DEVICE)
     noise = torch.randn((J, P), generator=gen, device=DEVICE)
@@ -625,10 +909,12 @@ def timings(np, torch, wire, ref, reparam, gen):
             library_ms=device_ms(torch, lambda xc=xc, wc=wc, denom=denom: torch.mv(xc.T, wc) / denom),
             nbytes=Jc * Pc * f4 + Jc * f4 + Pc * f4, flops=2 * Jc * Pc, shape=[Jc, Pc]))
     rows += ns_timings(torch, wire, ref, gen) + reparam_timings(torch, reparam, ref, gen)
+    rows += backbone_timings(torch, attention, gla, rmsnorm, ref, gen)
     for row in rows:
-        row["bound_ms"] = max(row["nbytes"] / HBM_BYTES_PER_S, row["flops"] / F32_FLOPS) * 1e3
+        peak = row.pop("peak", F32_FLOPS)
+        row["bound_ms"] = max(row["nbytes"] / HBM_BYTES_PER_S, row["flops"] / peak) * 1e3
         row["bound_by"] = ("bytes" if row["nbytes"] / HBM_BYTES_PER_S
-                           >= row["flops"] / F32_FLOPS else "operations")
+                           >= row["flops"] / peak else "operations")
         print(json.dumps({"timing": row, "shape": row.pop("shape", [J, P])}), flush=True)
     return rows
 
@@ -684,6 +970,79 @@ def reparam_timings(torch, reparam, ref, gen):
     return rows
 
 
+def flash_work(B, Sq, Skv, H, KV, hd, elt):
+    """Bytes (q, k, v read once, out written once) and flops (4 hd per live
+    (query, key) pair, causal with q_offset 0)."""
+    live = sum(min(i + 1, Skv) for i in range(Sq))
+    return (2 * B * Sq * H * hd + 2 * B * Skv * KV * hd) * elt, 4 * hd * live * B * H
+
+
+FLASH_TIMES = [("zamba2_prefill_4096_bf16", 4, 4096, 32, 32, 112),
+               ("zamba2_prefill_64_bf16", 8, 64, 32, 32, 112),
+               ("qwen3_prefill_512_bf16", 8, 512, 32, 8, 128)]
+GLA_TIMES = [("zamba2_prefill_4096_bf16", 4, 4096, 112, 64, 64),
+             ("zamba2_prefill_64_bf16", 8, 64, 112, 64, 64)]
+RMS_TIMES = [("d3584_r16384_bf16", 4 * 4096, 3584), ("d7168_r16384_bf16", 4 * 4096, 7168),
+             ("d2560_r4096_bf16", 8 * 512, 2560), ("d128_r131072_bf16", 8 * 512 * 32, 128),
+             ("d3584_r8_bf16", 8, 3584)]
+
+
+def backbone_timings(torch, attention, gla, rmsnorm, ref, gen):
+    """The three backbone kernels at their serve shapes, bf16."""
+    import torch.nn.functional as F
+
+    bf16 = torch.bfloat16
+    rows = []
+    for mode, B, S, H, KV, hd in FLASH_TIMES:
+        q = torch.randn((B, S, H, hd), generator=gen, device=DEVICE).to(bf16)
+        k, v = (torch.randn((B, S, KV, hd), generator=gen, device=DEVICE).to(bf16)
+                for _ in range(2))
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+
+        def library(qt=qt, kt=kt, vt=vt):
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+
+        lib_err = float((library().transpose(1, 2).float()
+                         - attention.flash_attention(q, k, v).float()).abs().max())
+        assert lib_err <= 2e-2 * (1 + float(v.float().abs().max())), (mode, lib_err)
+        nbytes, flops = flash_work(B, S, S, H, KV, hd, 2)
+        rows.append(dict(
+            name="flash_attention", mode=mode,
+            ms=device_ms(torch, lambda q=q, k=k, v=v: attention.flash_attention(q, k, v)),
+            plain_ms=device_ms(torch, lambda q=q, k=k, v=v: ref.flash_attention_plain(q, k, v),
+                               reps=5, warmup=1),
+            library_ms=device_ms(torch, library), nbytes=nbytes, flops=flops,
+            peak=BF16_FLOPS, shape=[B, S, H, KV, hd]))
+    for mode, B, S, H, N, P in GLA_TIMES:
+        q, k, v, log_a = gla_inputs(torch, B, S, H, N, P, True, gen, bf16)
+        rows.append(dict(
+            name="gla", mode=mode,
+            ms=device_ms(torch, lambda q=q, k=k, v=v, a=log_a: gla.gla(q, k, v, a)),
+            plain_ms=device_ms(torch, lambda q=q, k=k, v=v, a=log_a: ref.gla_plain(
+                q, k, v, a, chunk=gla.CHUNK), reps=5, warmup=1),
+            library_ms=None,
+            # q, k: one (B, S, N) group each; v and y (B, S, H, P) bf16; log_a f32.
+            # Operations: the recurrence's 4 N P a (step, head).
+            nbytes=2 * B * S * N * 2 + 2 * B * S * H * P * 2 + B * S * H * 4,
+            flops=4 * N * P * B * S * H, peak=BF16_FLOPS, shape=[B, S, H, N, P]))
+    for mode, R, D in RMS_TIMES:
+        x = torch.randn((R, D), generator=gen, device=DEVICE).to(bf16)
+        w = (1.0 + 0.2 * torch.randn((D,), generator=gen, device=DEVICE)).to(bf16)
+
+        def library(x=x, w=w, D=D):
+            return F.rms_norm(x, (D,), weight=w, eps=1e-6)
+
+        lib_err = float((library().float() - rmsnorm.rmsnorm(x, w).float()).abs().max())
+        assert lib_err <= 2e-2 * (1 + float(x.float().abs().max())), (mode, lib_err)
+        rows.append(dict(
+            name="rmsnorm", mode=mode,
+            ms=device_ms(torch, lambda x=x, w=w: rmsnorm.rmsnorm(x, w)),
+            plain_ms=device_ms(torch, lambda x=x, w=w: ref.rmsnorm_plain(x, w)),
+            library_ms=device_ms(torch, library),
+            nbytes=2 * R * D * 2 + D * 2, flops=4 * R * D, peak=BF16_FLOPS, shape=[R, D]))
+    return rows
+
+
 KERNELS = {
     # name: (source, the TPU kernel it replaces, the timing mode of its line)
     "fused_upload": ("src/repro_torch/csrc/wire.cu", "src/repro/kernels/wire.py:137", "sfvi"),
@@ -694,14 +1053,21 @@ KERNELS = {
                         "f32_N508160"),
     "reparam_stl_bwd": ("src/repro_torch/csrc/reparam.cu", "src/repro/kernels/reparam.py:128",
                         "f32_N508160"),
+    "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+                        "src/repro/kernels/attention.py:98", "zamba2_prefill_4096_bf16"),
+    "gla": ("src/repro_torch/csrc/gla.cu", "src/repro/kernels/gla.py:73",
+            "zamba2_prefill_4096_bf16"),
+    "rmsnorm": ("src/repro_torch/csrc/rmsnorm.cu", "src/repro/kernels/rmsnorm.py:23",
+                "d3584_r16384_bf16"),
 }
 
 
 def kernels_line(rows, launches, errors):
     """The ``kernels`` entries: each kernel's row at its main-path shape.
 
-    ``launches`` are the main-path runs' counts; the reparam kernels are on
-    no round's path (as in the JAX package), so theirs is 0.
+    ``launches`` are the main-path runs' counts (the federated rounds for the
+    wire kernels, the three serve runs for the backbone's); the reparam
+    kernels are on no round's path (as in the JAX package), so theirs is 0.
     """
     by_mode = {(r["name"], r["mode"]): r for r in rows}
     out = []
@@ -731,7 +1097,7 @@ def main() -> int:
     assert torch.get_float32_matmul_precision() == "highest"
     assert not torch.backends.cuda.matmul.allow_tf32
 
-    from repro_torch.kernels import build, ref, reparam, wire
+    from repro_torch.kernels import attention, build, gla, ref, reparam, rmsnorm, wire
 
     # Phase 1: the card, then the build (one nvcc per source, in parallel).
     card = gpu_line()
@@ -752,6 +1118,9 @@ def main() -> int:
     err_ns = check_ns_step(torch, wire, ref, gen)
     err_rp = check_reparam(torch, reparam, ref, gen)
     check_port_cuda_vs_cpu(np, torch)
+    err_bb = check_backbone_kernels(torch, attention, gla, rmsnorm, ref, gen)
+    parity = check_backbone_cuda_vs_cpu(torch)
+    print(json.dumps({"backbone_cuda_vs_cpu": parity}), flush=True)
 
     # Phase 3: the main paths at full width.
     print("phase 3: main paths at full width (hier_bnn, glmm)", flush=True)
@@ -761,12 +1130,17 @@ def main() -> int:
                           "median_after_first": statistics.median(round_s[1:])}),
               flush=True)
         print(json.dumps({"profile": label, **profiles[label]}), flush=True)
+    print("phase 3b: backbone serve runs at full width (bf16)", flush=True)
+    bb_totals, serve_results = serve_runs(torch, [attention, gla, rmsnorm], [wire, reparam])
+    for res in serve_results:
+        print(json.dumps(res), flush=True)
 
     # Phase 4: timings.
     print("phase 4: timings", flush=True)
-    rows = timings(np, torch, wire, ref, reparam, gen)
-    kernels = kernels_line(rows, totals, {"fused_upload": err_up, "fused_combine": err_co,
-                                          "newton_schulz_step": err_ns, **err_rp})
+    rows = timings(np, torch, wire, ref, reparam, attention, gla, rmsnorm, gen)
+    kernels = kernels_line(rows, {**totals, **bb_totals},
+                           {"fused_upload": err_up, "fused_combine": err_co,
+                            "newton_schulz_step": err_ns, **err_rp, **err_bb})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,7 +7,9 @@ state on ``device``: dicts keep their keys, tuples stay tuples, and a
 reference optimizer NamedTuple becomes the port's class of the same
 name (``ScaleByAdamState``, ...). The two packages keep one state
 layout, so this is a leaf-by-leaf copy. ``datas_from_numpy`` does the
-same for silo data dicts.
+same for silo data dicts. ``backbone_params_from_jax`` copies a JAX
+backbone parameter tree (pulled to numpy) into the port's layout, which
+is the same nested dict.
 
 Nothing here imports the reference: the input is plain numpy.
 """
@@ -60,3 +62,27 @@ def datas_from_numpy(datas: Sequence[dict], device) -> List[dict]:
         "x": torch.as_tensor(np.array(d["x"], dtype=np.float32), device=device),
         "y": torch.as_tensor(np.array(d["y"], dtype=np.int64), device=device),
     } for d in datas]
+
+
+def _leaf_to_torch(x: Any, device: torch.device) -> torch.Tensor:
+    """One numpy leaf -> a tensor, bit for bit. JAX's bf16 arrives as the
+    ``ml_dtypes`` bfloat16 numpy dtype, which torch does not take: it is
+    viewed as int16 and then as ``torch.bfloat16``."""
+    arr = np.array(x, copy=True)
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16).to(device)
+    return torch.as_tensor(arr, device=device)
+
+
+def backbone_params_from_jax(params_np: Dict[str, Any], device) -> Dict[str, Any]:
+    """A JAX backbone parameter tree (nested dicts of numpy arrays: stacked
+    ``units/slotS``, ``tail``, ``shared_attn``, ``embed``, ``final_norm``,
+    ``lm_head``) -> the same tree of tensors on ``device``."""
+    device = torch.device(device)
+
+    def walk(x):
+        if isinstance(x, dict):
+            return {k: walk(v) for k, v in x.items()}
+        return _leaf_to_torch(x, device)
+
+    return walk(params_np)

@@ -24,7 +24,8 @@ from pathlib import Path
 from typing import Dict
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
-SOURCES = {"wire": "wire.cu", "newton_schulz": "newton_schulz.cu", "reparam": "reparam.cu"}
+SOURCES = {"wire": "wire.cu", "newton_schulz": "newton_schulz.cu", "reparam": "reparam.cu",
+           "rmsnorm": "rmsnorm.cu", "flash_attention": "flash_attention.cu", "gla": "gla.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 

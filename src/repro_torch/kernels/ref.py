@@ -1,12 +1,18 @@
 """Plain PyTorch versions of the port's kernels (the correctness contract).
 
 Torch twins of ``repro/kernels/ref.py:47-164``: the wire kernels, the
-Newton–Schulz step and the reparam + STL log q forward and backward.
+Newton–Schulz step and the reparam + STL log q forward and backward; and
+of the backbone's three kernels: flash attention (the semantics of
+``repro/models/backbone/attention.py`` ``chunked_attention`` and of the
+Pallas kernel ``repro/kernels/attention.py:28``), chunked gated linear
+attention (``repro/models/backbone/ssm.py:29 chunked_gla``) and RMSNorm.
 Each is the mathematical definition, written for clarity, not speed: the
 kernel wrappers (:mod:`repro_torch.kernels.wire`,
-:mod:`repro_torch.kernels.reparam`) take them for CPU tensors, the CPU tests
-hold them against the reference's Pallas kernels, and ``chip_smoke.py``
-holds each CUDA kernel against them on the card.
+:mod:`repro_torch.kernels.reparam`, :mod:`repro_torch.kernels.attention`,
+:mod:`repro_torch.kernels.gla`, :mod:`repro_torch.kernels.rmsnorm`) take
+them for CPU tensors, the CPU tests hold them against the reference's
+Pallas kernels, and ``chip_smoke.py`` holds each CUDA kernel against them
+on the card.
 
 One deliberate difference from the reference: the DP noise of
 :func:`wire_upload_ref` is an input (``noise``, a ``(J, P)`` N(0, I)
@@ -139,3 +145,103 @@ def reparam_stl_bwd_ref(log_sigma: torch.Tensor, eps: torch.Tensor, dz: torch.Te
     sig = torch.exp(ls)
     return (g.to(log_sigma.dtype), (g * sig * e - lq).to(log_sigma.dtype),
             (g * sig - lq * e).to(eps.dtype))
+
+
+NEG_INF = -1e30  # the flash kernel's mask value (repro/kernels/attention.py:25)
+
+
+def flash_attention_plain(
+    q: torch.Tensor,  # (B, Sq, H, hd)
+    k: torch.Tensor,  # (B, Skv, KV, hd)
+    v: torch.Tensor,  # (B, Skv, KV, hd)
+    causal: bool = True,
+    window: Optional[int] = None,
+    q_offset: int = 0,
+    q_chunk: int = 1024,
+) -> torch.Tensor:
+    """Softmax attention with GQA (query head h reads kv head h // (H/KV)),
+    causal and sliding-window masks and ``q_offset`` (the position of q[0]
+    relative to k[0]). Scores, max, normalizer and the weighted sum are
+    f32; masked scores are −1e30 and masked weights 0, so a row with no
+    live key ends at 0 (the Pallas kernel's rule); the normalizer is
+    clamped at 1e-30. Queries are taken ``q_chunk`` rows at a time so the
+    (Sq, Skv) scores never exist whole. Returns (B, Sq, H, hd) in q's dtype.
+    """
+    B, Sq, H, hd = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    scale = 1.0 / math.sqrt(hd)
+    kf, vf = k.float(), v.float()
+    kv_pos = torch.arange(Skv, device=q.device)
+    outs = []
+    for s0 in range(0, Sq, q_chunk):
+        qc = q[:, s0:s0 + q_chunk].float()
+        c = qc.shape[1]
+        s = torch.einsum("bqkgd,bskd->bkgqs", qc.reshape(B, c, KV, G, hd), kf) * scale
+        q_pos = torch.arange(s0, s0 + c, device=q.device) + q_offset
+        mask = torch.ones((c, Skv), dtype=torch.bool, device=q.device)
+        if causal:
+            mask &= kv_pos[None, :] <= q_pos[:, None]
+        if window is not None:
+            mask &= kv_pos[None, :] > q_pos[:, None] - window
+        s = s.masked_fill(~mask, NEG_INF)
+        p = torch.exp(s - s.amax(dim=-1, keepdim=True)) * mask
+        l = torch.clamp(p.sum(dim=-1, keepdim=True), min=1e-30)
+        o = torch.einsum("bkgqs,bskd->bkgqd", p, vf) / l  # (B, KV, G, c, hd)
+        outs.append(o.permute(0, 3, 1, 2, 4).reshape(B, c, H, hd))
+    return torch.cat(outs, dim=1).to(q.dtype)
+
+
+def gla_plain(
+    q: torch.Tensor,  # (B, S, H, dk)
+    k: torch.Tensor,  # (B, S, H, dk)
+    v: torch.Tensor,  # (B, S, H, dv)
+    log_a: torch.Tensor,  # (B, S, H) per-step log decay (<= 0)
+    chunk: int = 64,
+) -> torch.Tensor:
+    """y_t = q_t^T (Σ_{s<=t} Π_{r=s+1..t} e^{log_a_r} k_s v_s^T), chunked.
+
+    Within a chunk (q kᵀ ∘ D) v with D_ts = e^{L_t − L_s} masked to s <= t
+    before the exp; across chunks (q·e^L) S_in, with S_out = e^{L_C} S_in
+    + (k·e^{L_C − L})ᵀ v carried in f32. S is padded to a chunk multiple
+    with identity steps (log_a 0, k = v = 0). All arithmetic in f32;
+    returns (B, S, H, dv) in q's dtype.
+    """
+    B, S, H, dk = q.shape
+    dv = v.shape[-1]
+    chunk = min(chunk, S)
+    pad = (-S) % chunk
+    qf, kf, vf, af = q.float(), k.float(), v.float(), log_a.float()
+    if pad:
+        qf, kf, vf = (torch.nn.functional.pad(t, (0, 0, 0, 0, 0, pad)) for t in (qf, kf, vf))
+        af = torch.nn.functional.pad(af, (0, 0, 0, pad))
+    n = (S + pad) // chunk
+    qc = qf.reshape(B, n, chunk, H, dk)
+    kc = kf.reshape(B, n, chunk, H, dk)
+    vc = vf.reshape(B, n, chunk, H, dv)
+    cum = torch.cumsum(af.reshape(B, n, chunk, H), dim=2)  # L_t within each chunk
+    total = cum[:, :, -1]  # (B, n, H)
+    diff = cum[:, :, :, None, :] - cum[:, :, None, :, :]  # (B, n, C_t, C_s, H)
+    tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool, device=q.device))
+    D = torch.exp(torch.where(tri[None, None, :, :, None], diff,
+                              torch.full_like(diff, -math.inf)))
+    scores = torch.einsum("bnthd,bnshd->bntsh", qc, kc) * D
+    y_intra = torch.einsum("bntsh,bnshv->bnthv", scores, vc)
+    k_dec = kc * torch.exp(total[:, :, None] - cum)[..., None]
+    chunk_kv = torch.einsum("bnshd,bnshv->bnhdv", k_dec, vc)  # (B, n, H, dk, dv)
+    state = torch.zeros((B, H, dk, dv), dtype=torch.float32, device=q.device)
+    states = []
+    for i in range(n):  # the state entering each chunk
+        states.append(state)
+        state = state * torch.exp(total[:, i])[..., None, None] + chunk_kv[:, i]
+    q_dec = qc * torch.exp(cum)[..., None]
+    y_inter = torch.einsum("bnthd,bnhdv->bnthv", q_dec, torch.stack(states, dim=1))
+    y = (y_intra + y_inter).reshape(B, n * chunk, H, dv)
+    return y[:, :S].to(q.dtype)
+
+
+def rmsnorm_plain(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """x·rsqrt(mean(x²) + eps)·w over the last axis, in f32, cast to x's dtype."""
+    x32 = x.float()
+    rms = torch.rsqrt(torch.mean(x32 * x32, dim=-1, keepdim=True) + eps)
+    return ((x32 * rms) * weight.float()).to(x.dtype)

@@ -89,11 +89,16 @@ def _raise_on(err: int, fn: str) -> None:
         raise RuntimeError(f"{fn} failed to launch: cudaError_t {err}")
 
 
+def _unit_last(t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself when its last axis is contiguous, else a contiguous copy."""
+    return t if t.stride(-1) == 1 else t.contiguous()
+
+
 def _on_cuda(x: torch.Tensor) -> bool:
     if x.device.type == "cpu":
         return False
     if x.device.type != "cuda":
-        raise ValueError(f"the wire kernels run on cuda or cpu, got {x.device}")
+        raise ValueError(f"the port's kernels run on cuda or cpu, got {x.device}")
     return True
 
 

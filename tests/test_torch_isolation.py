@@ -31,7 +31,9 @@ def _port_modules():
 def test_port_imports_with_jax_blocked():
     mods = _port_modules()
     for name in ("federated.runtime", "kernels.wire", "kernels.reparam", "kernels.build",
-                 "models.paper.glmm", "core.barycenter", "data.synthetic"):
+                 "models.paper.glmm", "core.barycenter", "data.synthetic",
+                 "kernels.attention", "kernels.gla", "kernels.rmsnorm",
+                 "models.backbone.transformer", "launch.serve_backbone"):
         assert f"repro_torch.{name}" in mods
     code = (
         "import sys, importlib\n"
@@ -102,3 +104,13 @@ def test_kernel_wrappers_refuse_other_devices():
         wire.fused_upload(x, mask=torch.ones(2, device="meta"))
     with pytest.raises(ValueError, match="cuda or cpu"):
         wire.fused_combine(x, torch.ones(2, device="meta"))
+
+    from repro_torch.kernels import attention, gla, rmsnorm
+
+    q = torch.zeros((1, 4, 2, 8), device="meta")
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        attention.flash_attention(q, q, q)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        gla.gla(q, q, q, torch.zeros((1, 4, 2), device="meta"))
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        rmsnorm.rmsnorm(q, torch.ones(8, device="meta"))
