@@ -18,10 +18,11 @@ replacing the Pallas kernels of ``repro/kernels/wire.py``:
 
 Dispatch is by the tensor's device and nothing else: a CPU tensor takes
 the plain version in :mod:`repro_torch.kernels.ref`; a CUDA tensor
-launches the kernel or raises. ``LAUNCHES`` counts kernel launches (one
-per launch, on the CUDA route only; one per step for the Newton–Schulz
-step, whose two launches are one call), so a run can show that its main
-path went through the kernels.
+launches the kernel or raises. ``LAUNCHES`` counts wrapper calls that
+launch, on the CUDA route only (one per upload, whose one to three
+launches are one call; one per Newton–Schulz step, whose two launches
+are one call), so a run can show that its main path went through the
+kernels.
 
 The DP noise is an input: a ``(J, P)`` float32 N(0, I) tensor (the
 reference draws threefry noise in-kernel from per-row keys).
@@ -29,7 +30,7 @@ reference draws threefry noise in-kernel from per-row keys).
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -38,11 +39,15 @@ from repro_torch.kernels import ref as _ref
 LAUNCHES: Dict[str, int] = {"fused_upload": 0, "fused_combine": 0, "newton_schulz_step": 0}
 
 MAX_TRIM_ROWS = 1024  # the trimmed combine is O(J^2) per column
+MAX_UPLOAD_ROWS = 65535  # the upload's rows ride grid y
+UPLOAD_THREADS = 256  # threads a block of the upload kernels
+UPLOAD_BLOCKS_PER_SM = 4  # the plan aims at this many blocks an SM
+H100_SMS = 132
 
 _c_void_p, _c_int, _c_float = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    "repro_fused_upload": [_c_void_p] * 7 + [_c_int, _c_int, _c_int, _c_float,
-                                             _c_float, _c_int, _c_void_p],
+    "repro_fused_upload": [_c_void_p] * 9 + [_c_int] * 6 + [_c_float, _c_float, _c_int,
+                                                             _c_void_p],
     "repro_fused_combine_f32": [_c_void_p] * 3 + [_c_int, _c_int, _c_int,
                                                   _c_float, _c_void_p],
     "repro_fused_combine_i8": [_c_void_p] * 4 + [_c_int, _c_int, _c_int,
@@ -102,6 +107,30 @@ def _on_cuda(x: torch.Tensor) -> bool:
     return True
 
 
+def _upload_plan(J: int, P: int, sms: int = H100_SMS) -> Tuple[int, int]:
+    """``(C, chunk)``: the upload kernel's grid splits each of the J rows into
+    C column chunks of ``chunk`` floats (the last one ragged).
+
+    ``chunk`` is a multiple of 4 floats (so chunk starts keep the row's
+    16-byte alignment) and at least one float4 a thread; C aims at
+    ``UPLOAD_BLOCKS_PER_SM`` blocks on each of the card's ``sms`` SMs. The
+    kernel's partial-sum scratch is ``(J, C)`` f32.
+    """
+    per_row = max(1, -(-UPLOAD_BLOCKS_PER_SM * sms // max(J, 1)))
+    chunk = -(-P // per_row)
+    chunk = max(4 * UPLOAD_THREADS, -(-chunk // 4) * 4)
+    return max(1, -(-P // chunk)), chunk
+
+
+def _upload_vec(P: int, tensors) -> int:
+    """Floats a load of the upload kernel moves: 4 when P % 4 == 0, 2 when
+    P % 2 == 0, else 1, cut to what every tensor's address allows."""
+    for vec in (4, 2):
+        if P % vec == 0 and all(t.data_ptr() % (4 * vec) == 0 for t in tensors):
+            return vec
+    return 1
+
+
 def fused_upload(
     x: torch.Tensor,  # (J, P) stacked wire matrix, one row per silo
     *,
@@ -115,7 +144,10 @@ def fused_upload(
     """Fused clip + noise + mask + int8 quantize over the wire matrix.
 
     Returns the privatized (J, P) float32 matrix, or ``(q, scales)``
-    ((J, P) int8 + (J,) float32) when ``quantize``.
+    ((J, P) int8 + (J,) float32) when ``quantize``. On the card one call
+    is one launch (SFVI, SFVI-Avg), two (clip, or int8 alone) or three
+    (clip + int8) of the row-split kernels; ``LAUNCHES["fused_upload"]``
+    counts calls, as ``newton_schulz_step`` counts step calls.
     """
     if noise_multiplier > 0.0 and clip_norm is None:
         raise ValueError("noise_multiplier > 0 requires clip_norm")
@@ -135,14 +167,22 @@ def fused_upload(
         _check(noise, "noise", torch.float32, (J, P), dev)
     if reference is not None:
         _check(reference, "reference", torch.float32, (P,), dev)
+    if J > MAX_UPLOAD_ROWS:
+        raise ValueError(f"the upload kernel takes J <= {MAX_UPLOAD_ROWS}, got {J}")
     y = torch.empty((J, P), dtype=torch.float32, device=dev)
     q = torch.empty((J, P), dtype=torch.int8, device=dev) if quantize else None
     scales = torch.empty((J,), dtype=torch.float32, device=dev) if quantize else None
     if J and P:
         clip = clip_norm is not None
+        C, chunk = _upload_plan(J, P, torch.cuda.get_device_properties(dev).multi_processor_count)
+        norm_parts = torch.empty((J, C), dtype=torch.float32, device=dev) if clip else None
+        max_parts = torch.empty((J, C), dtype=torch.float32, device=dev) if quantize else None
+        vec = _upload_vec(P, [t for t in (x, noise if has_noise else None, reference, y, q)
+                              if t is not None])
         err = _lib().repro_fused_upload(
             _ptr(x), _ptr(mask), _ptr(noise) if has_noise else None, _ptr(reference),
-            _ptr(y), _ptr(q), _ptr(scales), J, P, int(clip),
+            _ptr(y), _ptr(q), _ptr(scales), _ptr(norm_parts), _ptr(max_parts),
+            J, P, C, chunk, vec, int(clip),
             float(clip_norm) if clip else 0.0,
             float(noise_multiplier) * float(clip_norm) if has_noise else 0.0,
             int(quantize), torch.cuda.current_stream(dev).cuda_stream)
