@@ -16,12 +16,15 @@ non-zero):
      main path's shapes (J=10, P=100,354) and at ragged ones (the upload in
      every mode also at P % 4 != 0, P below one chunk, J = 1 and 64,
      P % 4 == 0 and x off 16-byte alignment); the
-     Newton–Schulz step at d from 1 to 1,970 and the whole 40-step square
-     root; the reparam + STL forward and backward at N up to 508,160 in
-     f32 and bf16. Then the whole port on the card (fused wire, CUDA
-     kernels) against the port on the CPU (flat wire, plain stages) on one
-     injected random stream: hier_bnn at a small width, and the GLMM +
-     Cholesky global family at full width, SFVI and SFVI-Avg. Then the
+     Newton–Schulz step at d from 1 to 1,970; the whole 40-step square
+     root (one launch of the root kernel up to the wrapper's limit d, 40
+     step calls past it) at d from 1 to the limit + 1, and against the 40
+     step calls at the path's (2, 5) and (6, 5); the reparam + STL forward
+     and backward at N up to 508,160 in f32 and bf16. Then the whole port
+     on the card (fused wire, CUDA kernels) against the port on the CPU
+     (flat wire, plain stages) on one injected random stream: hier_bnn at
+     a small width, and the GLMM + Cholesky global family at full width,
+     SFVI and SFVI-Avg. Then the
      backbone's kernels against their plain versions in bf16 and f32:
      flash attention (bf16 on the tensor-core kernel with one and with two
      warpgroups a block, each bf16 output also element by element within
@@ -34,7 +37,10 @@ non-zero):
      the tensor-core kernel's shared-memory plan against the wrapper's; GLA at
      (8, 64) and (4, 4,096) x 112 heads x 64/64 (q, k a stride-0 group as
      mamba2 gives them), S = 1,000 and dv = 65; RMSNorm at D = 3,584,
-     7,168, 2,560 and 128 with ragged row counts. And the backbone on the
+     7,168, 2,560 and 128 with ragged row counts and rows at scales 2^-4
+     to 2^4, on 16-byte vectors and, with x one element off 16 bytes, on
+     the scalar route, each bf16 output also element by element within
+     one bf16 step of the plain value. And the backbone on the
      card against the backbone on the CPU in f32: zamba2-7b at full width
      with one hybrid unit (6 layers), B = 2, prompt 32, greedy gen 4;
   3. the main paths at full width, each through ``Server(wire="fused")``
@@ -44,8 +50,9 @@ non-zero):
        K=4 — SFVI 3 rounds, SFVI-Avg 3 rounds, SFVI-Avg + int8 + trimmed
        mean + DP 2 rounds, SFVI + int8 + trimmed mean 2 rounds;
        the paper's GLMM (six cities, 536 children), J=2, K=25, Cholesky
-       global family — SFVI 3 rounds, SFVI-Avg 3 rounds (4,000
-       Newton–Schulz steps a round); and J=6 (89 children a silo), rank-2
+       global family — SFVI 3 rounds, SFVI-Avg 3 rounds (100 launches
+       of the square-root kernel a round, no step call); and J=6 (89
+       children a silo), rank-2
        low-rank global family, unitriangular conditional local family,
        SFVI-Avg + trimmed mean (0.2) 2 rounds;
      then 2 more rounds of each run under ``torch.profiler`` for the
@@ -67,8 +74,12 @@ non-zero):
      989 TFLOP/s (bf16 dense tensor cores) for bfloat16 inputs. The
      backbone's kernels at their serve shapes: flash attention (the
      tensor-core kernel with one and two warpgroups a block) against
-     ``F.scaled_dot_product_attention``, RMSNorm against ``F.rms_norm``,
-     GLA against no library call.
+     ``F.scaled_dot_product_attention``, RMSNorm against ``F.rms_norm``
+     and a device copy of x (and, at decode's (8, 3,584), both calls'
+     host time), GLA against no library call; the square root at the
+     path's shapes and the wrapper's limit d against the 40 step calls it
+     replaced (device and host wall time), and the step route one past the
+     limit and at d = 64.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -79,6 +90,7 @@ import ctypes
 import dataclasses
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -93,7 +105,7 @@ F32_FLOPS = 67e12  # H100 SXM f32, outside the tensor cores
 BF16_FLOPS = 989e12  # H100 SXM bf16 dense tensor cores (NVIDIA data sheet)
 MAIN_J, MAIN_P = 10, 100_354
 GLMM_CHILDREN, GLMM_J, GLMM_K = 536, 2, 25
-NS_STEPS_PER_MERGE = 50 * 2 * 40  # fixed-point steps x (root + batched roots) x NS steps
+NS_ROOTS_PER_MERGE = 50 * 2  # fixed-point steps x (root + batched roots), one launch each
 SLEEP_CYCLES = 2_000_000
 DEVICE = "cuda"  # every tensor of the check lives here
 
@@ -248,11 +260,26 @@ def check_trim_33(torch, wire, ref, gen):
 
 NS_SHAPES = [(1, 1), (1, 5), (2, 5), (6, 5), (10, 5), (1, 64), (3, 65), (1, 257), (1, 1970)]
 REPARAM_NS = [1, 4097, 50_177, 508_160]  # 508,160 = hier_bnn's J x local dim
+NS_PATH_SHAPES = [(1, 5), (2, 5), (6, 5)]  # the barycenter's roots: J = 2 and J = 6
+
+
+def ns_root_shapes(wire):
+    """(B, d) of the root checks: the path's, small and ragged ones, and the
+    wrapper's limit d (the root kernel) and limit + 1 (the step route)."""
+    lim = wire.NS_ROOT_MAX_D
+    return sorted({(1, 1), (1, 5), (2, 5), (6, 5), (10, 5), (1, 64), (3, 65), (1, lim),
+                   (3, lim + 1)}, key=lambda s: (s[1], s[0]))
+
+
+def spd_batch(torch, B, d, gen):
+    a = torch.randn((B, d, d), generator=gen, device=DEVICE)
+    return a @ a.mT / d + 0.1 * torch.eye(d, device=DEVICE)
 
 
 def check_ns_step(torch, wire, ref, gen):
-    """The step kernel against its plain version; returns the largest error."""
-    worst = 0.0
+    """The step kernel and the root kernel against their plain versions;
+    returns the largest error of each (the root's at the path's shapes)."""
+    worst = {"newton_schulz_step": 0.0, "sqrtm_newton_schulz": 0.0}
     for B, d in NS_SHAPES:
         y = torch.randn((B, d, d), generator=gen, device=DEVICE) / math.sqrt(d)
         z = torch.randn((B, d, d), generator=gen, device=DEVICE) / math.sqrt(d)
@@ -264,18 +291,56 @@ def check_ns_step(torch, wire, ref, gen):
         print(f"  newton_schulz_step ({B},{d},{d}) max_abs={err:.3e} (<= {tol:.1e})",
               flush=True)
         assert err <= tol, (B, d)
-        worst = max(worst, err)
-    for B, d in [(2, 5), (1, 64)]:
-        a = torch.randn((B, d, d), generator=gen, device=DEVICE)
-        spd = a @ a.mT / d + 0.1 * torch.eye(d, device=DEVICE)
+        worst["newton_schulz_step"] = max(worst["newton_schulz_step"], err)
+    lib = wire._ns_lib()
+    lib.repro_ns_root_smem_bytes.argtypes = [ctypes.c_int]
+    lib.repro_ns_root_smem_bytes.restype = ctypes.c_longlong
+    lim = wire.NS_ROOT_MAX_D
+    assert all(lib.repro_ns_root_smem_bytes(d) == wire.ns_root_smem_bytes(d)
+               for d in range(1, lim + 2))
+    assert wire.ns_root_smem_bytes(lim) <= wire.SMEM_LIMIT
+    # The entry itself refuses d past the limit (cudaErrorInvalidValue).
+    past = torch.empty((1, lim + 1, lim + 1), device=DEVICE)
+    refused = lib.repro_sqrtm_newton_schulz(past.data_ptr(), past.data_ptr(), 1, lim + 1, 1,
+                                            torch.cuda.current_stream().cuda_stream)
+    assert refused != 0, refused
+    print(f"  sqrtm_newton_schulz smem plan: d 1..{lim + 1} agree with the source; "
+          f"{wire.ns_root_smem_bytes(lim)} bytes at the wrapper's limit d = {lim} "
+          f"(<= {wire.SMEM_LIMIT}); the entry refuses d = {lim + 1} (error {refused})",
+          flush=True)
+    # The whole 40-step root: one launch of the root kernel up to the
+    # wrapper's limit d, 40 step calls past it (the launch counters say which).
+    for B, d in ns_root_shapes(wire):
+        spd = spd_batch(torch, B, d, gen)
+        before = dict(wire.LAUNCHES)
         got = wire.sqrtm_newton_schulz_fused(spd, num_iters=40)
-        want = ref.newton_schulz_sqrtm_ref(spd, 40)
         sync(torch)
+        launched = {k: wire.LAUNCHES[k] - before[k] for k in ("sqrtm_newton_schulz",
+                                                              "newton_schulz_step")}
+        want = ref.newton_schulz_sqrtm_ref(spd, 40)
         rel = float(torch.linalg.norm(got - want) / torch.linalg.norm(want))
         resid = float((got @ got - spd).abs().max())
-        print(f"  sqrtm_newton_schulz_fused ({B},{d},{d}) 40 steps: rel_fro={rel:.3e} "
+        root = d <= wire.NS_ROOT_MAX_D
+        route = "root kernel, 1 launch" if root else "step route, 40 step calls"
+        print(f"  sqrtm_newton_schulz_fused ({B},{d},{d}) 40 steps [{route}]: rel_fro={rel:.3e} "
               f"(<= 1e-4); |root^2 - A|_max={resid:.2e}", flush=True)
-        assert rel <= 1e-4, (B, d)
+        assert launched == ({"sqrtm_newton_schulz": 1, "newton_schulz_step": 0} if root
+                            else {"sqrtm_newton_schulz": 0, "newton_schulz_step": 40}), launched
+        assert rel <= 1e-4 and bool(torch.isfinite(got).all()), (B, d)
+        if (B, d) in NS_PATH_SHAPES:
+            worst["sqrtm_newton_schulz"] = max(worst["sqrtm_newton_schulz"],
+                                               float((got - want).abs().max()))
+    # Against the route the barycenter took before the root kernel: 40 step
+    # calls around the plain normalization. Only the norm's rounding differs.
+    for B, d in [(2, 5), (6, 5)]:
+        spd = spd_batch(torch, B, d, gen)
+        got = wire.sqrtm_newton_schulz_fused(spd, num_iters=40)
+        steps = ref.newton_schulz_sqrtm_ref(spd, 40, step=wire.newton_schulz_step)
+        sync(torch)
+        rel = float(torch.linalg.norm(got - steps) / torch.linalg.norm(steps))
+        print(f"  sqrtm_newton_schulz_fused ({B},{d},{d}) root kernel vs 40 step calls: "
+              f"rel_fro={rel:.3e} (<= 1e-6)", flush=True)
+        assert rel <= 1e-6, (B, d)
     return worst
 
 
@@ -567,6 +632,57 @@ def check_flash_plan(attention):
           f"(<= {attention.SMEM_LIMIT})", flush=True)
 
 
+# RMSNorm's bf16 output is also held element by element to one bf16 step
+# of want (2^-7 |want|; a floor of 2^-16 for want near 0). Row r of x is
+# scaled by 2^((r % 9) - 4), so a row whose scale took another row's
+# partial sum (a stale slot of the warps' exchange, a missed barrier) is off
+# by a factor, not by the 1-2 % that rows of one scale differ by; the
+# max-abs limit alone lets a 1 % error through at |want| ~ 4.
+RMS_BF16_STEP, RMS_BF16_FLOOR = 2.0 ** -7, 2.0 ** -16
+
+
+def rms_bf16_ratio(torch, got, want) -> float:
+    """Largest |got - want| over its element's limit (<= 1 passes)."""
+    g, w = got.float(), want.float()
+    return float(((g - w).abs() / (RMS_BF16_STEP * w.abs() + RMS_BF16_FLOOR)).max())
+
+
+def check_rmsnorm(torch, rmsnorm, ref, gen) -> float:
+    """RMSNorm at the serve path's widths, three type pairs, 16-byte vectors
+    on aligned rows and the scalar route on x one element past 16 bytes
+    (the plan says which); returns the largest bf16 error on the vector
+    route."""
+    worst = 0.0
+    for label, rows, D in RMS_CHECKS:
+        scale = torch.exp2((torch.arange(rows, device=DEVICE) % 9 - 4).float())[:, None]
+        for dtype, wdtype in ((torch.bfloat16, torch.bfloat16), (torch.float32, torch.float32),
+                              (torch.bfloat16, torch.float32)):
+            for shift in (0, 1):
+                buf = torch.randn((rows * D + shift,), generator=gen, device=DEVICE).to(dtype)
+                x = buf[shift:].view(rows, D)
+                x.mul_(scale.to(dtype))  # powers of two: exact in either type
+                w = (1.0 + 0.2 * torch.randn((D,), generator=gen, device=DEVICE)).to(wdtype)
+                plan = rmsnorm._rmsnorm_plan(rows, D, x, w)
+                assert (plan.vec > 1) == (shift == 0), (label, plan)
+                got = rmsnorm.rmsnorm(x, w, 1e-6)
+                want = ref.rmsnorm_plain(x, w, 1e-6)
+                sync(torch)
+                err = float((got.float() - want.float()).abs().max())
+                ok, line = _check_line(label, err, want)
+                if dtype == torch.bfloat16:
+                    ratio = rms_bf16_ratio(torch, got, want)
+                    line += f", elementwise {ratio:.3f} of 2^-7 |want| (<= 1)"
+                    ok = ok and ratio <= 1.0
+                route = f"vec {plan.vec}" if shift == 0 else "scalar, x 1 elt off"
+                print(f"  rmsnorm {label:<16} ({rows},{D}) x {str(dtype)[6:]:<8} "
+                      f"w {str(wdtype)[6:]:<8} [{route}, {plan.lanes} lanes x {plan.vpl}]: "
+                      f"{line}", flush=True)
+                assert ok and got.dtype == dtype, (label, dtype, shift)
+                if dtype == wdtype == torch.bfloat16 and shift == 0:
+                    worst = max(worst, err)
+    return worst
+
+
 def check_backbone_kernels(torch, attention, gla, rmsnorm, ref, gen):
     """Each kernel against its plain version, bf16 and f32; returns each
     kernel's largest error over its serve-path shapes in bf16."""
@@ -594,21 +710,7 @@ def check_backbone_kernels(torch, attention, gla, rmsnorm, ref, gen):
             assert ok and got.dtype == dtype, (label, dtype)
             if main and dtype == torch.bfloat16:
                 worst["gla"] = max(worst["gla"], err)
-    for label, rows, D in RMS_CHECKS:
-        for dtype, wdtype in ((torch.bfloat16, torch.bfloat16), (torch.float32, torch.float32),
-                              (torch.bfloat16, torch.float32)):
-            x = torch.randn((rows, D), generator=gen, device=DEVICE).to(dtype)
-            w = (1.0 + 0.2 * torch.randn((D,), generator=gen, device=DEVICE)).to(wdtype)
-            got = rmsnorm.rmsnorm(x, w, 1e-6)
-            want = ref.rmsnorm_plain(x, w, 1e-6)
-            sync(torch)
-            err = float((got.float() - want.float()).abs().max())
-            ok, line = _check_line(label, err, want)
-            print(f"  rmsnorm {label:<16} ({rows},{D}) x {str(dtype)[6:]:<8} "
-                  f"w {str(wdtype)[6:]:<8}: {line}", flush=True)
-            assert ok and got.dtype == dtype, (label, dtype)
-            if dtype == wdtype == torch.bfloat16:
-                worst["rmsnorm"] = max(worst["rmsnorm"], err)
+    worst["rmsnorm"] = check_rmsnorm(torch, rmsnorm, ref, gen)
     return worst
 
 
@@ -679,11 +781,20 @@ def check_backbone_cuda_vs_cpu(torch):
 # ---------------------------------------------------------------------------
 
 
+# The port's kernels by symbol (csrc/*.cu), summed apart in each profile.
+PORT_KERNELS = ("upload_norm_kernel", "sum_partials_kernel", "upload_apply_kernel",
+                "upload_quant_kernel", "combine_kernel", "ns_t_kernel", "ns_update_kernel",
+                "ns_root_small_kernel", "ns_root_tiled_kernel", "reparam_fwd_kernel",
+                "reparam_bwd_kernel", "flash_kernel", "flash_tc_kernel", "gla_kernel",
+                "rmsnorm_kernel")
+
+
 def profile_summary(prof, wall_s: float, top: int = 8) -> dict:
     """Device busy share and kernel time by name from a torch.profiler trace.
 
     Busy time is the union of the device events' intervals; the idle share
-    is the rest of the host wall time of the traced rounds.
+    is the rest of the host wall time of the traced rounds. ``port_kernels``
+    sums the device time and calls of each of the port's own kernels.
     """
     from torch.autograd import DeviceType
 
@@ -696,11 +807,18 @@ def profile_summary(prof, wall_s: float, top: int = 8) -> dict:
         total, calls = by_name.get(name, (0.0, 0))
         by_name[name] = (total + end - start, calls + 1)
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
+    port = {}
+    for n, (t, c) in by_name.items():
+        for sym in PORT_KERNELS:
+            if re.search(rf"\b{sym}\b", n):
+                ms, calls = port.get(sym, (0.0, 0))
+                port[sym] = (ms + t * 1e-3, calls + c)
     return {
         "wall_s": wall_s, "device_busy_s": busy_us * 1e-6,
         "idle_share": 1.0 - busy_us * 1e-6 / wall_s,
         "device_events": len(spans),
         "top": [{"name": n[:80], "ms": t * 1e-3, "calls": c} for n, (t, c) in ranked],
+        "port_kernels": {k: {"ms": ms, "calls": c} for k, (ms, c) in sorted(port.items())},
     }
 
 
@@ -716,7 +834,7 @@ def profile_rounds(torch, srv, K, start_round, rounds=2) -> dict:
     return {"rounds": rounds, **profile_summary(prof, wall)}
 
 
-KERNEL_COUNTS = ("fused_upload", "fused_combine", "newton_schulz_step")
+KERNEL_COUNTS = ("fused_upload", "fused_combine", "newton_schulz_step", "sqrtm_newton_schulz")
 
 
 def drive(torch, wire, reparam, label, srv, rounds, K, want_up, per_round, rise):
@@ -784,17 +902,18 @@ def main_path(np, torch, wire, reparam, in_dim=784, hidden=64):
     # go through the combine kernel, and no combined row is formed (θ = ∅).
     runs = [
         # (label, bundle, strategy, rounds, K, Server kwargs, bytes up per round,
-        #  launches per round (upload, combine, Newton–Schulz step), ELBO must rise)
-        ("sfvi", bundle, "sfvi", 3, K, {}, K * J * 4 * P, (K, K, 0), True),
-        ("sfvi_avg", bundle, "sfvi_avg", 3, K, {}, J * 4 * P, (1, 2, 0), True),
+        #  launches per round (upload, combine, Newton–Schulz step, square root),
+        #  ELBO must rise)
+        ("sfvi", bundle, "sfvi", 3, K, {}, K * J * 4 * P, (K, K, 0, 0), True),
+        ("sfvi_avg", bundle, "sfvi_avg", 3, K, {}, J * 4 * P, (1, 2, 0, 0), True),
         ("sfvi_avg+int8+trimmed+dp", bundle, "sfvi_avg", 2, K,
          dict(compressor=Int8Compressor(), aggregator=TrimmedMeanAggregator(0.1),
               privacy=PrivacyPolicy(clip_norm=0.3, noise_multiplier=0.3)),
-         J * (P + 4), (1, 2, 0), False),
+         J * (P + 4), (1, 2, 0, 0), False),
         # step cadence: int8 is dequantized inside the trimmed combine kernel
         ("sfvi+int8+trimmed", bundle, "sfvi", 2, K,
          dict(compressor=Int8Compressor(), aggregator=TrimmedMeanAggregator(0.1)),
-         K * J * (P + 4), (K, K, 0), False),
+         K * J * (P + 4), (K, K, 0, 0), False),
     ]
     assert [r[6] for r in runs] == [16_056_640, 4_014_160, 1_003_580, 4_014_320]
 
@@ -802,7 +921,8 @@ def main_path(np, torch, wire, reparam, in_dim=784, hidden=64):
     # with the Cholesky global family: η_G = (mu, log_sigma, L_packed) is a
     # 5 + 5 + 10 = 20-float wire row. SFVI-Avg's full-covariance barycenter
     # merges the means with the combine kernel and takes 50 x (1 + 1
-    # batched) square roots of 40 Newton–Schulz steps each.
+    # batched) square roots of 40 Newton–Schulz steps each: 100 launches
+    # of the root kernel a merge, no step call.
     Jg, Kg = GLMM_J, GLMM_K
     chol = glmm_bundle(Jg, GLMM_CHILDREN, ("cholesky",))
     # J=6 (89 children a silo) with a rank-2 low-rank global family, the
@@ -813,12 +933,12 @@ def main_path(np, torch, wire, reparam, in_dim=784, hidden=64):
     print(f"  glmm: global dim 5, local dim {chol.problem.model.local_dim} (J={Jg}) / "
           f"{lowrank.problem.model.local_dim} (J=6), wire P=20, K={Kg}", flush=True)
     runs += [
-        ("glmm+cholesky sfvi", chol, "sfvi", 3, Kg, {}, Kg * Jg * 4 * 20, (Kg, Kg, 0), True),
+        ("glmm+cholesky sfvi", chol, "sfvi", 3, Kg, {}, Kg * Jg * 4 * 20, (Kg, Kg, 0, 0), True),
         ("glmm+cholesky sfvi_avg", chol, "sfvi_avg", 3, Kg, {}, Jg * 4 * 20,
-         (1, 1, NS_STEPS_PER_MERGE), True),
+         (1, 1, 0, NS_ROOTS_PER_MERGE), True),
         ("glmm+lowrank+chol_local sfvi_avg+trimmed", lowrank, "sfvi_avg", 2, Kg,
          dict(aggregator=TrimmedMeanAggregator(0.2)), 6 * 4 * 20,
-         (1, 1, NS_STEPS_PER_MERGE), False),
+         (1, 1, 0, NS_ROOTS_PER_MERGE), False),
     ]
     assert [r[6] for r in runs[4:]] == [4000, 160, 480]
     totals = {k: 0 for k in KERNEL_COUNTS}
@@ -1048,12 +1168,68 @@ def timings(np, torch, wire, ref, reparam, attention, gla, rmsnorm, gen):
     return rows
 
 
+def wall_ms(torch, fn, reps=20, warmup=3):
+    """Median host time of ``fn`` up to its results on the card (a call and
+    a synchronize): what a caller that reads the result right away waits."""
+    for _ in range(warmup):
+        fn()
+    sync(torch)
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        sync(torch)
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def host_us(torch, fn, calls=200, reps=7):
+    """Median host time to issue one call of ``fn``, in µs: ``calls`` calls
+    back to back, then a synchronize outside the clock. Only for calls whose
+    kernels are shorter than their issue, so the card's queue never fills."""
+    fn()
+    sync(torch)
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        times.append((time.perf_counter() - t0) / calls * 1e6)
+        sync(torch)
+    return statistics.median(times)
+
+
+def rmsnorm_host_us(torch, rmsnorm):
+    """Host µs a call at decode's (8, 3,584) bf16: the wrapper's and
+    ``F.rms_norm``'s. Takes the module, so a second checkout's wrapper can
+    be timed by the same code."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(7)
+    x = torch.randn((8, 3584), generator=gen, device=DEVICE).to(torch.bfloat16)
+    w = torch.ones((3584,), device=DEVICE, dtype=torch.bfloat16)
+    return {"host_us": host_us(torch, lambda: rmsnorm.rmsnorm(x, w)),
+            "library_host_us": host_us(torch, lambda: F.rms_norm(x, (3584,), weight=w,
+                                                                 eps=1e-6))}
+
+
 def ns_timings(torch, wire, ref, gen):
-    """The step at the barycenter's shapes and at larger d. The library
-    yardstick is PyTorch's own batched products for the same step:
-    t = baddbmm(1.5 I, z, y, alpha=-0.5), then bmm(y, t) and bmm(t, z)."""
+    """The step at the barycenter's shapes, on each side of the root
+    kernel's limit d and at larger d. The library yardstick is PyTorch's own
+    batched products for the same step: t = baddbmm(1.5 I, z, y,
+    alpha=-0.5), then bmm(y, t) and bmm(t, z). Forty times a step's time is
+    the step route's device work at that d.
+
+    Then the 40-step root at the path's shapes and at the wrapper's limit d:
+    the root kernel against the route the barycenter took before it (40
+    step calls, ``steps_ms``), both also as host wall time per call
+    (``wall_ms``, ``steps_wall_ms``); one past the limit and at d = 64, the
+    wrapper's step route alone. No single PyTorch call computes the root,
+    so it has no library time."""
     rows = []
-    for B, d in [(2, 5), (10, 5), (1, 257), (1, 1970)]:
+    lim = wire.NS_ROOT_MAX_D
+    for B, d in [(2, 5), (10, 5), (1, lim), (1, lim + 1), (1, 64), (1, 257), (1, 1970)]:
         y = torch.randn((B, d, d), generator=gen, device=DEVICE) / math.sqrt(d)
         z = torch.randn((B, d, d), generator=gen, device=DEVICE) / math.sqrt(d)
         half3 = (1.5 * torch.eye(d, device=DEVICE)).expand(B, d, d)
@@ -1071,6 +1247,27 @@ def ns_timings(torch, wire, ref, gen):
             library_ms=device_ms(torch, library),
             # y, z read once and y t, t z written once; 3 products of 2 d^3
             nbytes=B * 4 * d * d * 4, flops=B * 3 * 2 * d**3, shape=[B, d, d]))
+    for B, d in NS_PATH_SHAPES + [(1, lim), (1, lim + 1), (1, 64)]:
+        spd = spd_batch(torch, B, d, gen)
+
+        def steps(spd=spd):
+            return ref.newton_schulz_sqrtm_ref(spd, 40, step=wire.newton_schulz_step)
+
+        # Up to the limit the root kernel, with the 40-step route beside it;
+        # past it the wrapper's own route is the 40 step calls.
+        root = (lambda spd=spd: wire._sqrtm_root(spd, 40)) if d <= lim else steps
+        rows.append(dict(
+            name="sqrtm_newton_schulz", mode=f"B{B}_d{d}" + ("_step_route" if d > lim else ""),
+            ms=device_ms(torch, root, **({} if d <= lim else dict(reps=5, warmup=1))),
+            plain_ms=device_ms(torch, lambda spd=spd: ref.newton_schulz_sqrtm_ref(spd, 40),
+                               reps=5, warmup=1),
+            library_ms=None,
+            steps_ms=device_ms(torch, steps, reps=5, warmup=1) if d <= lim else None,
+            wall_ms=wall_ms(torch, root, **({} if d <= lim else dict(reps=5, warmup=1))),
+            steps_wall_ms=wall_ms(torch, steps, reps=5, warmup=1) if d <= lim else None,
+            # the matrices read once and the roots written once; 40 steps of
+            # 3 products of 2 d^3 (norm and rescale aside)
+            nbytes=2 * B * d * d * 4, flops=B * 40 * 3 * 2 * d**3, shape=[B, d, d]))
     return rows
 
 
@@ -1169,12 +1366,19 @@ def backbone_timings(torch, attention, gla, rmsnorm, ref, gen):
 
         lib_err = float((library().float() - rmsnorm.rmsnorm(x, w).float()).abs().max())
         assert lib_err <= 2e-2 * (1 + float(x.float().abs().max())), (mode, lib_err)
+        dst = torch.empty_like(x)
+        plan = rmsnorm._rmsnorm_plan(R, D, x, w)
         rows.append(dict(
             name="rmsnorm", mode=mode,
             ms=device_ms(torch, lambda x=x, w=w: rmsnorm.rmsnorm(x, w)),
             plain_ms=device_ms(torch, lambda x=x, w=w: ref.rmsnorm_plain(x, w)),
             library_ms=device_ms(torch, library),
-            nbytes=2 * R * D * 2 + D * 2, flops=4 * R * D, peak=BF16_FLOPS, shape=[R, D]))
+            # a device copy of x: one read and one write of the same bytes,
+            # the practical floor under a single pass
+            copy_ms=device_ms(torch, lambda x=x, dst=dst: dst.copy_(x)),
+            plan=f"{plan.lanes} lanes x {plan.vpl} vectors",
+            nbytes=2 * R * D * 2 + D * 2, flops=4 * R * D, peak=BF16_FLOPS, shape=[R, D],
+            **(rmsnorm_host_us(torch, rmsnorm) if (R, D) == (8, 3584) else {})))
     return rows
 
 
@@ -1184,6 +1388,8 @@ KERNELS = {
     "fused_combine": ("src/repro_torch/csrc/wire.cu", "src/repro/kernels/wire.py:242", "mean"),
     "newton_schulz_step": ("src/repro_torch/csrc/newton_schulz.cu",
                            "src/repro/kernels/wire.py:310", "B2_d5"),
+    "sqrtm_newton_schulz": ("src/repro_torch/csrc/newton_schulz.cu",
+                            "src/repro/kernels/wire.py:335", "B2_d5"),
     "reparam_stl_fwd": ("src/repro_torch/csrc/reparam.cu", "src/repro/kernels/reparam.py:57",
                         "f32_N508160"),
     "reparam_stl_bwd": ("src/repro_torch/csrc/reparam.cu", "src/repro/kernels/reparam.py:128",
@@ -1207,7 +1413,9 @@ def kernels_line(rows, launches, errors):
 
     ``launches`` are the main-path runs' counts (the federated rounds for the
     wire kernels, the three serve runs for the backbone's); the reparam
-    kernels are on no round's path (as in the JAX package), so theirs is 0.
+    kernels are on no round's path (as in the JAX package), so theirs is 0,
+    and neither is the step kernel: the barycenter's d = 5 roots take the
+    square-root kernel, and the step serves only d past its limit.
     """
     by_mode = {(r["name"], r["mode"]): r for r in rows}
     out = []
@@ -1283,7 +1491,7 @@ def main() -> int:
     rows = timings(np, torch, wire, ref, reparam, attention, gla, rmsnorm, gen)
     kernels = kernels_line(rows, {**totals, **bb_totals},
                            {"fused_upload": err_up, "fused_combine": err_co,
-                            "newton_schulz_step": err_ns, **err_rp, **err_bb})
+                            **err_ns, **err_rp, **err_bb})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

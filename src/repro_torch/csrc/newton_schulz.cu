@@ -1,5 +1,5 @@
-// Newton–Schulz step of the full-covariance W2 barycenter, hand-written for
-// Hopper (sm_90a).
+// Newton–Schulz step and square root of the full-covariance W2 barycenter,
+// hand-written for Hopper (sm_90a).
 //
 // Built by repro_torch/kernels/build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared -Xcompiler -fPIC
@@ -33,7 +33,33 @@
 // wgmma: the barycenter runs 4,000 steps a round and is held to f32 parity,
 // which TF32's 10-bit mantissa would not keep. Known shortfalls (later
 // work): two launches per step, SIMT FP32 instead of tensor cores, and at
-// d = 5 one block of 256 threads of which 25 own an output.
+// d = 5 one block of 256 threads of which 25 own an output. The barycenter
+// takes its roots from the root kernel below; the step kernel serves the
+// roots above that kernel's limit d (the wrapper dispatches by shape).
+// ---------------------------------------------------------------------------
+// sqrtm_newton_schulz  (replaces src/repro/kernels/wire.py:335
+//                       sqrtm_newton_schulz_fused: a fori_loop of num_iters
+//                       Pallas steps, which XLA compiles into one program)
+//
+// For each b of a batch of B (d, d) f32 matrices m_b, in one launch:
+//   norm = sqrt(sum m_b^2) + 1e-12;  y = m_b / norm;  z = I;
+//   num_iters times: t = 0.5 * (3I - z y);  y <- y t;  z <- t z;
+//   out_b = y * sqrt(norm).
+// What bounds it: launch latency and the steps' chain of block barriers at
+// the barycenter's d = 5 (40 dependent steps; the bound on bytes and flops
+// is below a microsecond); SIMT FP32 issue and shared-memory loads at
+// d = 32 (3 * 2d^3 flops a step on one SM).
+// Design: one block a matrix, d <= 32 (above, one SM a matrix loses on the
+// card to the step kernel's multi-block launches: the wrapper sends d > 32
+// there, wire.NS_ROOT_MAX_D). y, z, their next values and t stay in shared
+// memory across all steps (ping-pong buffers, 5 d^2 floats + 32 for the
+// norm's warp sums: at most 20,608 bytes). The grid-wide barrier between t
+// and its two consumers, which split the step kernel into two launches, is
+// a block barrier here: two barriers a step. The block is sized to d^2,
+// one thread an output, its k loops unrolled.
+// Each output is the same FP32 FMA chain as the step kernel's, k ascending
+// from 0, with the same t epilogue, so from the same normalized y a root
+// equals num_iters step launches bit for bit. No TF32.
 // ---------------------------------------------------------------------------
 
 #include <cuda_runtime.h>
@@ -44,6 +70,8 @@ constexpr int kTile = 32;                 // output tile edge
 constexpr int kSlab = 16;                 // k depth per shared-memory slab
 constexpr int kThreads = 256;             // 16 x 16 threads, 2 x 2 outputs each
 constexpr int kHalf = kTile / 2;
+constexpr int kRootMaxD = 32;             // the root kernel's largest d (wire.NS_ROOT_MAX_D)
+constexpr int kRootScratch = 32;          // floats: the norm's warp sums
 
 // acc[i][j] = sum_k A[row0 + ty + 16 i, k] * B[k, col0 + tx + 16 j]
 // for the block's 32 x 32 tile of C = A B, A and B row-major (d, d).
@@ -127,9 +155,138 @@ ns_update_kernel(const float* __restrict__ y, const float* __restrict__ z,
   }
 }
 
+// The sum of v over the block, in every thread; red holds 32 floats.
+__device__ __forceinline__ float block_sum(float v, float* red) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  const int warps = (blockDim.x + 31) / 32;
+  if (threadIdx.x % 32 == 0) red[threadIdx.x / 32] = v;
+  __syncthreads();
+  float total = 0.0f;
+  for (int w = 0; w < warps; ++w) total += red[w];
+  return total;
+}
+
+// The root's first phase: norm = sqrt(sum m^2) + 1e-12 (every thread gets
+// it), y0 = m / norm, z0 = I, then a block barrier.
+__device__ __forceinline__ float root_init(const float* __restrict__ m, float* y0, float* z0,
+                                          float* red, int d) {
+  const int n = d * d;
+  float ss = 0.0f;
+  for (int e = threadIdx.x; e < n; e += blockDim.x) ss = fmaf(m[e], m[e], ss);
+  const float norm = sqrtf(block_sum(ss, red)) + 1e-12f;
+  for (int e = threadIdx.x; e < n; e += blockDim.x) {
+    y0[e] = m[e] / norm;
+    z0[e] = (e / d == e % d) ? 1.0f : 0.0f;
+  }
+  __syncthreads();
+  return norm;
+}
+
+// d <= DMAX <= 32: one thread an output (d^2 of the block's threads own
+// one). A thread loads the rows and columns of its products into registers
+// 8 k at a time, zeros past d (fmaf(0, 0, acc) leaves acc as it is: it is
+// never -0), then runs the FMA chain over k ascending. The ping-pong
+// buffers are addressed by offset, so every access is a shared-memory one.
+template <int DMAX>
+__global__ void __launch_bounds__(DMAX * DMAX < 32 ? 32 : DMAX * DMAX)
+ns_root_small_kernel(const float* __restrict__ mat, float* __restrict__ out, int d,
+                     int num_iters) {
+  constexpr int KC = DMAX < 8 ? DMAX : 8;  // k a load batch
+  extern __shared__ float smem[];
+  const int n = d * d;
+  const long long off = static_cast<long long>(blockIdx.x) * n;
+  float* const t = smem + 4 * n;
+  const float norm = root_init(mat + off, smem, smem + 2 * n, smem + 5 * n, d);
+  const int e = threadIdx.x;
+  const bool owns = e < n;
+  const int r = owns ? e / d : 0, c = owns ? e % d : 0;
+  int cur = 0;  // y at smem + cur, z at smem + 2n + cur; the next ones at n - cur
+  for (int it = 0; it < num_iters; ++it) {
+    const float* y = smem + cur;
+    const float* z = smem + 2 * n + cur;
+    if (owns) {  // t = 0.5 (3I - z y)
+      float acc = 0.0f;
+#pragma unroll
+      for (int k0 = 0; k0 < DMAX; k0 += KC) {
+        float a[KC], b[KC];
+#pragma unroll
+        for (int k = 0; k < KC; ++k) {
+          a[k] = k0 + k < d ? z[r * d + k0 + k] : 0.0f;
+          b[k] = k0 + k < d ? y[(k0 + k) * d + c] : 0.0f;
+        }
+#pragma unroll
+        for (int k = 0; k < KC; ++k) acc = fmaf(a[k], b[k], acc);
+      }
+      t[e] = 0.5f * ((r == c ? 3.0f : 0.0f) - acc);
+    }
+    __syncthreads();
+    if (owns) {  // y t and t z
+      float yt = 0.0f, tz = 0.0f;
+#pragma unroll
+      for (int k0 = 0; k0 < DMAX; k0 += KC) {
+        float a[KC], b[KC], f[KC], g[KC];
+#pragma unroll
+        for (int k = 0; k < KC; ++k) {
+          const bool in = k0 + k < d;
+          a[k] = in ? y[r * d + k0 + k] : 0.0f;
+          b[k] = in ? t[(k0 + k) * d + c] : 0.0f;
+          f[k] = in ? t[r * d + k0 + k] : 0.0f;
+          g[k] = in ? z[(k0 + k) * d + c] : 0.0f;
+        }
+#pragma unroll
+        for (int k = 0; k < KC; ++k) {
+          yt = fmaf(a[k], b[k], yt);
+          tz = fmaf(f[k], g[k], tz);
+        }
+      }
+      smem[n - cur + e] = yt;
+      smem[3 * n - cur + e] = tz;
+    }
+    __syncthreads();
+    cur = n - cur;
+  }
+  const float scale = sqrtf(norm);
+  if (owns) out[off + e] = smem[cur + e] * scale;
+}
+
+// The kernel for d and its block size (d^2 rounded up to a warp), or
+// nullptr past kRootMaxD: above it the step kernel serves (the wrapper
+// dispatches by shape).
+using RootKernel = void (*)(const float*, float*, int, int);
+RootKernel root_kernel(int d, int* threads) {
+  *threads = (d * d + 31) / 32 * 32;
+  if (d <= 8) return ns_root_small_kernel<8>;
+  if (d <= 16) return ns_root_small_kernel<16>;
+  if (d <= kRootMaxD) return ns_root_small_kernel<kRootMaxD>;
+  return nullptr;
+}
+
+long long root_smem_bytes(int d) {
+  return static_cast<long long>(sizeof(float)) * (5LL * d * d + kRootScratch);
+}
+
 }  // namespace
 
 extern "C" {
+
+// The root kernel's dynamic shared memory at d, in bytes (the wrapper's
+// plan, repro_torch/kernels/wire.py:ns_root_smem_bytes, must agree).
+long long repro_ns_root_smem_bytes(int d) { return root_smem_bytes(d); }
+
+// mat, out: (B, d, d) f32, out not aliasing mat; one launch of B blocks.
+// num_iters >= 0; 1 <= d <= 32.
+int repro_sqrtm_newton_schulz(const float* mat, float* out, int batch, int d, int num_iters,
+                              void* stream) {
+  int threads = 0;
+  const RootKernel kernel = d >= 1 ? root_kernel(d, &threads) : nullptr;
+  if (batch < 1 || kernel == nullptr || num_iters < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  // At most 20,608 bytes (d = 32): within the 48 KB default, no opt-in.
+  const long long bytes = root_smem_bytes(d);
+  kernel<<<batch, threads, static_cast<size_t>(bytes), static_cast<cudaStream_t>(stream)>>>(
+      mat, out, d, num_iters);
+  return static_cast<int>(cudaGetLastError());
+}
 
 // y, z: (B, d, d) f32 inputs; t: (B, d, d) f32 scratch; yo, zo: (B, d, d) f32
 // outputs. No output aliases an input. B <= 32767 (grid z of launch 2).

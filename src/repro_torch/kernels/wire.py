@@ -13,8 +13,11 @@ replacing the Pallas kernels of ``repro/kernels/wire.py``:
     in-kernel int8 dequantize.
   * :func:`newton_schulz_step` (replaces ``wire.py:310
     newton_schulz_step``) — one Newton–Schulz iteration on a batch of
-    (d, d) pairs; :func:`sqrtm_newton_schulz_fused` (``wire.py:335``)
-    drives it for the full-covariance barycenter's square roots.
+    (d, d) pairs.
+  * :func:`sqrtm_newton_schulz_fused` (replaces ``wire.py:335``) — the
+    full-covariance barycenter's square roots: the whole ``num_iters``-step
+    root of each matrix in one launch for d up to ``NS_ROOT_MAX_D``, the
+    step kernel ``num_iters`` times above it.
 
 Dispatch is by the tensor's device and nothing else: a CPU tensor takes
 the plain version in :mod:`repro_torch.kernels.ref`; a CUDA tensor
@@ -36,7 +39,8 @@ import torch
 
 from repro_torch.kernels import ref as _ref
 
-LAUNCHES: Dict[str, int] = {"fused_upload": 0, "fused_combine": 0, "newton_schulz_step": 0}
+LAUNCHES: Dict[str, int] = {"fused_upload": 0, "fused_combine": 0, "newton_schulz_step": 0,
+                            "sqrtm_newton_schulz": 0}
 
 MAX_TRIM_ROWS = 1024  # the trimmed combine is O(J^2) per column
 MAX_UPLOAD_ROWS = 65535  # the upload's rows ride grid y
@@ -53,8 +57,15 @@ _SIGNATURES = {
     "repro_fused_combine_i8": [_c_void_p] * 4 + [_c_int, _c_int, _c_int,
                                                  _c_float, _c_void_p],
 }
-_NS_SIGNATURES = {"repro_newton_schulz_step": [_c_void_p] * 5 + [_c_int, _c_int, _c_void_p]}
+_NS_SIGNATURES = {"repro_newton_schulz_step": [_c_void_p] * 5 + [_c_int, _c_int, _c_void_p],
+                  "repro_sqrtm_newton_schulz": [_c_void_p] * 2 + [_c_int] * 3 + [_c_void_p]}
 MAX_NS_BATCH = 32767  # grid z of the step's second launch is 2B <= 65535
+SMEM_LIMIT = 232_448  # shared memory a block of the H100 can use, in bytes
+# The largest d whose square root is one launch of the root kernel (one
+# block a matrix, one thread an output). Past it one SM a matrix takes
+# longer on the card than the step route's num_iters multi-block launches
+# (PERF.md, kernel table), and no path of the port has such a d.
+NS_ROOT_MAX_D = 32
 
 
 def reset_launches() -> None:
@@ -257,13 +268,49 @@ def newton_schulz_step(y: torch.Tensor, z: torch.Tensor):
     return yo, zo
 
 
+def ns_root_smem_bytes(d: int) -> int:
+    """The root kernel's shared memory at d: y, z (two buffers each) and t,
+    plus 32 floats for the norm (``root_smem_bytes`` in the source)."""
+    return 4 * (5 * d * d + 32)
+
+
 def sqrtm_newton_schulz_fused(mat: torch.Tensor, num_iters: int = 25) -> torch.Tensor:
-    """PSD square root of each (d, d) matrix of ``mat`` through the step kernel.
+    """PSD square root of each (d, d) matrix of ``mat`` by Newton–Schulz.
 
     Drop-in for :func:`repro_torch.core.barycenter.sqrtm_newton_schulz`
     (``wire.py:335``): per matrix, Frobenius-normalize, start from
-    ``z = I``, run ``num_iters`` steps, rescale by √norm, in plain torch
-    around the kernel. ``mat`` is (d, d) or carries leading batch axes,
-    which run as one batched step (the reference vmaps its kernel).
+    ``z = I``, run ``num_iters`` steps, rescale by √norm. ``mat`` is
+    (d, d) or carries leading batch axes (the reference vmaps its kernel).
+
+    A CPU tensor takes the plain version around :func:`newton_schulz_step`.
+    On the card, d up to ``NS_ROOT_MAX_D`` is one launch of the root kernel
+    for the whole batch (:func:`_sqrtm_root`); a larger d takes
+    ``num_iters`` calls of the step kernel in plain torch: an explicit
+    choice by shape.
     """
-    return _ref.newton_schulz_sqrtm_ref(mat, num_iters, step=newton_schulz_step)
+    if not _on_cuda(mat) or mat.shape[-1] > NS_ROOT_MAX_D:
+        return _ref.newton_schulz_sqrtm_ref(mat, num_iters, step=newton_schulz_step)
+    return _sqrtm_root(mat, num_iters)
+
+
+def _sqrtm_root(mat: torch.Tensor, num_iters: int) -> torch.Tensor:
+    """One launch of the root kernel on a CUDA (..., d, d) float32 ``mat``,
+    d <= ``NS_ROOT_MAX_D``; counted under ``LAUNCHES["sqrtm_newton_schulz"]``."""
+    if mat.dim() < 2 or mat.shape[-2] != mat.shape[-1]:
+        raise ValueError(f"mat must be (..., d, d), got shape {tuple(mat.shape)}")
+    if mat.dtype != torch.float32:
+        raise ValueError(f"the Newton–Schulz root takes float32, got {mat.dtype}")
+    if num_iters < 0:
+        raise ValueError(f"num_iters must be >= 0, got {num_iters}")
+    d = mat.shape[-1]
+    if d > NS_ROOT_MAX_D:
+        raise ValueError(f"the root kernel takes d <= {NS_ROOT_MAX_D}, got {d}")
+    m = mat.reshape(-1, d, d).contiguous()
+    out = torch.empty_like(m)
+    if m.numel():
+        err = _ns_lib().repro_sqrtm_newton_schulz(
+            _ptr(m), _ptr(out), m.shape[0], d, int(num_iters),
+            torch.cuda.current_stream(mat.device).cuda_stream)
+        _raise_on(err, "sqrtm_newton_schulz")
+        LAUNCHES["sqrtm_newton_schulz"] += 1
+    return out.reshape(mat.shape)

@@ -96,7 +96,7 @@ def test_fused_upload_matches_reference(shape, cfg, pattern):
     else:
         _close(got, want)
     assert twire.LAUNCHES == {"fused_upload": 0, "fused_combine": 0,  # CPU: no launch
-                              "newton_schulz_step": 0}
+                              "newton_schulz_step": 0, "sqrtm_newton_schulz": 0}
 
 
 def test_fused_upload_inactive_zero_row_quantizes_to_zero():
