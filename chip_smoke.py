@@ -36,7 +36,12 @@ non-zero):
      and one element off), and with q tiles or rows without a live key;
      the tensor-core kernel's shared-memory plan against the wrapper's; GLA at
      (8, 64) and (4, 4,096) x 112 heads x 64/64 (q, k a stride-0 group as
-     mamba2 gives them), S = 1,000 and dv = 65; RMSNorm at D = 3,584,
+     mamba2 gives them), S = 1,000 and dv = 65 (bf16 on the tensor-core
+     kernel, 64 columns of dv a block, so dv = 65 takes two; each output also
+     element by element within 2^-7 of itself + 2^-6 of its row's rms; f32 on the SIMT
+     kernel; both routes' final state within 1e-4 / 1e-5 relative
+     Frobenius of the plain state; its shared-memory plan against the
+     wrapper's); RMSNorm at D = 3,584,
      7,168, 2,560 and 128 with ragged row counts and rows at scales 2^-4
      to 2^4, on 16-byte vectors and, with x one element off 16 bytes, on
      the scalar route, each bf16 output also element by element within
@@ -59,9 +64,11 @@ non-zero):
      device's busy and idle share. Then the backbone's serve path
      (``repro_torch.launch.serve_backbone.serve``) at full width in bf16,
      with the flash-attention, GLA and RMSNorm launch counters set to 0
-     just before each run and read just after (every bf16 flash call on the
-     tensor-core kernel, none on the SIMT one): zamba2-7b at full depth (81
-     layers; batch 8, prompt 64, gen 32, 4 silos: the JAX CLI's defaults),
+     just before each run and read just after (every bf16 flash and GLA
+     call on the tensor-core kernels, none on the SIMT ones; no prefill
+     calls ``gla_final_state``, mamba2's state comes from the GLA kernel):
+     zamba2-7b at full depth (81 layers; batch 8, prompt 64, gen 32, 4
+     silos: the JAX CLI's defaults),
      zamba2-7b at 12 layers (batch 4, prompt 4,096, gen 8), qwen3-4b at 4
      layers (batch 8, prompt 512, gen 16); prefill and decode times, peak
      memory, then one more prefill and two more decode steps under
@@ -76,13 +83,23 @@ non-zero):
      tensor-core kernel with one and two warpgroups a block) against
      ``F.scaled_dot_product_attention``, RMSNorm against ``F.rms_norm``
      and a device copy of x (and, at decode's (8, 3,584), both calls'
-     host time), GLA against no library call; the square root at the
+     host time), GLA (with and without the final state) against no
+     library call; the square root at the
      path's shapes and the wrapper's limit d against the 40 step calls it
      replaced (device and host wall time), and the step route one past the
      limit and at d = 64.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
+
+    python3 chip_smoke.py --gla-mutants
+
+builds broken copies of the GLA tensor-core kernel (``GLA_MUTANTS``: a
+chunk's state update skipped, the ``cp.async`` wait removed, the chunk
+barrier removed, a wrong dv-slice offset, the S_in copy written into the
+one being read), each in a copy of ``src/repro_torch`` under ``build/``,
+runs phase 2's GLA check (``--gla-check``) on each and on the unchanged
+source, and exits 0 only when every mutant fails it and the source passes.
 """
 from __future__ import annotations
 
@@ -90,10 +107,13 @@ import ctypes
 import dataclasses
 import json
 import math
+import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -540,6 +560,171 @@ def flash_bf16_ratio(torch, got, want) -> float:
     return float(torch.where(diff == 0, torch.zeros_like(diff), diff / limit).max())
 
 
+# The tensor-core GLA kernel's bf16 output is also held element by element:
+# |got - want| <= 2^-7 |want| (one bf16 step of the value) + 2^-6 rms(want's
+# row) (P rounded to bf16 before P v, as flash rounds it), a row being the
+# dv values of one (b, t, h). Late in a long walk the state term carries
+# most of y, so a stale or skipped chunk state, or a column of another
+# slice, moves whole rows by far more than that, where the max-abs limit,
+# 2e-2 of the largest |y|, sees only the largest rows. The state after the
+# last chunk is held in f32 relative Frobenius: within 1e-5 of the plain
+# state on the SIMT (f32) route, and within 1e-4 on the tensor-core route,
+# whose two f32 products take their operand as a bf16 hi + lo pair (about
+# 2^-17 of each term).
+GLA_BF16_STEP, GLA_BF16_ROW_RMS = 2.0 ** -7, 2.0 ** -6
+GLA_STATE_TOL = {"float32": 1e-5, "bfloat16": 1e-4}
+
+
+def gla_bf16_ratio(torch, got, want) -> float:
+    """Largest |got - want| over its element's limit (<= 1 passes)."""
+    g, w = got.float(), want.float()
+    limit = GLA_BF16_STEP * w.abs() + GLA_BF16_ROW_RMS * w.pow(2).mean(-1, keepdim=True).sqrt()
+    diff = (g - w).abs()
+    return float(torch.where(diff == 0, torch.zeros_like(diff), diff / limit).max())
+
+
+def check_gla_plan(gla):
+    """The wrapper's shared-memory plan for the tensor-core kernel equals the
+    source's, and fits."""
+    lib = gla._lib()
+    lib.repro_gla_tc_smem_bytes.restype = ctypes.c_longlong
+    for dk in range(1, gla.MAX_DIM + 1):
+        for S in (1, gla.CHUNK, gla.CHUNK + 1):
+            got = lib.repro_gla_tc_smem_bytes(dk, S)
+            assert got == gla.tc_smem_bytes(dk, S) <= gla.SMEM_LIMIT, (dk, S)
+    print(f"  gla tensor-core smem plan: dk 1..{gla.MAX_DIM} x one chunk or more agree "
+          f"with the source, largest {gla.tc_smem_bytes(gla.MAX_DIM)} (<= {gla.SMEM_LIMIT})",
+          flush=True)
+
+
+def check_gla(torch, gla, ref, gen) -> float:
+    """GLA at ``GLA_CHECKS`` in bf16 (the tensor-core kernel) and f32 (the
+    SIMT kernel), against the plain version: y
+    within the max-abs limit (and, bf16, element by element), the final
+    state within ``GLA_STATE_TOL``, y the same with and without the state,
+    and the launch counters showing the route. Returns the largest bf16
+    max-abs error at the serve-path shapes."""
+    check_gla_plan(gla)
+    worst = 0.0
+    for label, B, S, H, dk, dv, shared, main in GLA_CHECKS:
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v, log_a = gla_inputs(torch, B, S, H, dk, dv, shared, gen, dtype)
+            want, want_state = ref.gla_plain(q, k, v, log_a, chunk=gla.CHUNK, return_state=True)
+            tc = dtype == torch.bfloat16
+            before = dict(gla.LAUNCHES)
+            got, state = gla.gla(q, k, v, log_a, return_state=True)
+            bare = gla.gla(q, k, v, log_a)
+            sync(torch)
+            route = "gla_tc" if tc else "gla"
+            assert gla.LAUNCHES[route] == before[route] + 2, (label, gla.LAUNCHES)
+            assert sum(gla.LAUNCHES.values()) == sum(before.values()) + 2, gla.LAUNCHES
+            err = float((got.float() - want.float()).abs().max())
+            ok, line = _check_line(label, err, want)
+            rel = float((state - want_state).norm() / want_state.norm())
+            state_tol = GLA_STATE_TOL[str(dtype)[6:]]
+            ratio = gla_bf16_ratio(torch, got, want) if tc else 0.0
+            print(f"  gla {label:<20} ({B},{S},{H},{dk},{dv}) {str(dtype)[6:]:<8} "
+                  f"shared q/k={shared}: {line}"
+                  + (f", element ratio={ratio:.3f} (<= 1)" if tc else "")
+                  + f", state rel={rel:.2e} (<= {state_tol:.0e})", flush=True)
+            assert ok and got.dtype == dtype, (label, dtype)
+            assert ratio <= 1.0, (label, ratio)
+            assert rel <= state_tol and state.dtype == torch.float32, (label, dtype, rel)
+            assert torch.equal(bare, got), (label, dtype)
+            if main and tc:
+                worst = max(worst, err)
+    return worst
+
+
+# Broken copies of csrc/gla.cu's tensor-core kernel, each of which check_gla
+# must fail (``python3 chip_smoke.py --gla-mutants``): (name, text in gla.cu,
+# its replacement). The dv-slice offset is wrong for the second slice only,
+# so dv = 65's last column is never written.
+GLA_MUTANTS = [
+    ("state update skipped in chunk 1",
+     "#pragma unroll\n    for (int kk2 = 0; kk2 < kC / 16; ++kk2) {\n      const int s0 = kk2 * 16",
+     "for (int kk2 = 0; kk2 < (c == 1 ? 0 : kC / 16); ++kk2) {\n      const int s0 = kk2 * 16"),
+    ("cp.async wait removed",
+     "    cp_wait_all();\n    __syncthreads();  // chunk c has landed",
+     "    __syncthreads();  // chunk c has landed"),
+    ("chunk barrier removed",
+     "    cp_wait_all();\n    __syncthreads();  // chunk c has landed",
+     "    cp_wait_all();  // chunk c has landed"),
+    ("dv-slice offset wrong", "const int j0 = blockIdx.y * NS;",
+     "const int j0 = blockIdx.y * (NS + 8);"),
+    ("S_in copy written into the copy being read",
+     "__nv_bfloat16* sh = m.s_hi(cur ^ 1);\n      __nv_bfloat16* sl = m.s_lo(cur ^ 1);",
+     "__nv_bfloat16* sh = m.s_hi(cur);\n      __nv_bfloat16* sl = m.s_lo(cur);"),
+]
+
+
+def gla_check_main() -> int:
+    """``--gla-check``: build ``gla.cu`` and run :func:`check_gla` alone; the
+    last line says whether it passed (any error after the build fails it)."""
+    import torch
+
+    if not torch.cuda.is_available():
+        return fail("torch.cuda.is_available() is false: this check needs a CUDA card")
+    sys.path.insert(0, str(SRC))
+    from repro_torch.kernels import build, gla, ref
+
+    build.build("gla")
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(1234)
+    try:
+        check_gla(torch, gla, ref, gen)
+        sync(torch)
+    except Exception as e:  # an assertion, a launch error or a fault of the kernel
+        print(json.dumps({"gla_check": "fail", "why": f"{type(e).__name__}: {e}"[:300]}))
+        return 1
+    print(json.dumps({"gla_check": "pass"}))
+    return 0
+
+
+def gla_mutants_main() -> int:
+    """``--gla-mutants``: the unchanged ``gla.cu`` and each of ``GLA_MUTANTS``
+    in a copy of this script and ``src/repro_torch`` under ``build/`` (each
+    builds into its own ``build/kernels``), checked by ``--gla-check`` in its
+    own process, all started together. 0 when the unchanged source passes
+    and every mutant fails."""
+    import torch
+
+    if not torch.cuda.is_available():
+        return fail("torch.cuda.is_available() is false: this check needs a CUDA card")
+    print(gpu_line(), flush=True)
+    source = (SRC / "repro_torch" / "csrc" / "gla.cu").read_text()
+    cases = [("unchanged", "", "")] + GLA_MUTANTS
+    env = {k: v for k, v in os.environ.items() if k != "REPRO_TORCH_BUILD_DIR"}
+    (ROOT / "build").mkdir(exist_ok=True)
+    results = []
+    with tempfile.TemporaryDirectory(prefix="gla_mutants_", dir=ROOT / "build") as tmp:
+        procs = []
+        for i, (name, old, new) in enumerate(cases):
+            copy = Path(tmp) / str(i)
+            shutil.copytree(SRC / "repro_torch", copy / "src" / "repro_torch",
+                            ignore=shutil.ignore_patterns("__pycache__"))
+            shutil.copy2(Path(__file__), copy / "chip_smoke.py")
+            if old:
+                assert source.count(old) == 1, f"mutant {name!r}: its text is not in gla.cu once"
+                (copy / "src" / "repro_torch" / "csrc" / "gla.cu").write_text(
+                    source.replace(old, new))
+            procs.append(subprocess.Popen(
+                [sys.executable, str(copy / "chip_smoke.py"), "--gla-check"],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env))
+        for (name, _, _), proc in zip(cases, procs, strict=True):
+            out, _ = proc.communicate()
+            print(f"-- {name}\n{out}", end="", flush=True)
+            last = out.strip().splitlines()[-1] if out.strip() else ""
+            if not last.startswith('{"gla_check"'):
+                raise RuntimeError(f"{name}: the check did not run (exit {proc.returncode})")
+            verdict = json.loads(last)
+            results.append({"mutant": name, "fails_check": verdict["gla_check"] == "fail",
+                            "why": verdict.get("why", "")})
+    print(json.dumps({"gla_mutants": results}), flush=True)
+    ok = not results[0]["fails_check"] and all(r["fails_check"] for r in results[1:])
+    return 0 if ok else 1
+
+
 def gla_inputs(torch, B, S, H, dk, dv, shared, gen, dtype):
     """q, k (a (B, S, dk) group expanded over heads when ``shared``), v, log_a f32."""
     if shared:
@@ -697,19 +882,7 @@ def check_backbone_kernels(torch, attention, gla, rmsnorm, ref, gen):
     for label, B, Sq, Skv, H, KV, hd, causal, window, off, layout in FLASH_TC_CHECKS:
         check_flash(torch, attention, ref, label, (B, Sq, Skv, H, KV, hd, causal, window, off),
                     torch.bfloat16, gen, layout)
-    for label, B, S, H, dk, dv, shared, main in GLA_CHECKS:
-        for dtype in (torch.bfloat16, torch.float32):
-            q, k, v, log_a = gla_inputs(torch, B, S, H, dk, dv, shared, gen, dtype)
-            got = gla.gla(q, k, v, log_a)
-            want = ref.gla_plain(q, k, v, log_a, chunk=gla.CHUNK)
-            sync(torch)
-            err = float((got.float() - want.float()).abs().max())
-            ok, line = _check_line(label, err, want)
-            print(f"  gla {label:<20} ({B},{S},{H},{dk},{dv}) {str(dtype)[6:]:<8} "
-                  f"shared q/k={shared}: {line}", flush=True)
-            assert ok and got.dtype == dtype, (label, dtype)
-            if main and dtype == torch.bfloat16:
-                worst["gla"] = max(worst["gla"], err)
+    worst["gla"] = check_gla(torch, gla, ref, gen)
     worst["rmsnorm"] = check_rmsnorm(torch, rmsnorm, ref, gen)
     return worst
 
@@ -755,9 +928,10 @@ def check_backbone_cuda_vs_cpu(torch):
     cpu_logits, cpu_tok = greedy(torch, cfg, theta, eta_G, eta_L, tokens, 2, 4)
     cpu_s = time.perf_counter() - t0
     to_dev = lambda tree: tree_map(lambda a: a.to(DEVICE), tree)  # noqa: E731
-    from repro_torch.kernels import attention
+    from repro_torch.kernels import attention, gla
 
     attention.reset_launches()
+    gla.reset_launches()
     dev_logits, dev_tok = greedy(torch, cfg, to_dev(theta), to_dev(eta_G), to_dev(eta_L),
                                  tokens.to(DEVICE), 2, 4)
     sync(torch)
@@ -765,6 +939,9 @@ def check_backbone_cuda_vs_cpu(torch):
     want = backbone_launches_per_pass(cfg)[0]
     assert attention.LAUNCHES == {k: want[k] for k in attention.LAUNCHES}, attention.LAUNCHES
     assert attention.LAUNCHES["flash_attention"] > 0
+    # f32 GLA takes the SIMT kernel, once a mamba2 layer in the prefill.
+    assert gla.LAUNCHES == {k: want[k] for k in gla.LAUNCHES}, gla.LAUNCHES
+    assert gla.LAUNCHES["gla"] > 0
     rel = max(float((a - b).abs().max() / b.abs().max())
               for a, b in zip(dev_logits, cpu_logits, strict=True))
     same = bool(torch.equal(dev_tok, cpu_tok))
@@ -784,9 +961,9 @@ def check_backbone_cuda_vs_cpu(torch):
 # The port's kernels by symbol (csrc/*.cu), summed apart in each profile.
 PORT_KERNELS = ("upload_norm_kernel", "sum_partials_kernel", "upload_apply_kernel",
                 "upload_quant_kernel", "combine_kernel", "ns_t_kernel", "ns_update_kernel",
-                "ns_root_small_kernel", "ns_root_tiled_kernel", "reparam_fwd_kernel",
+                "ns_root_small_kernel", "reparam_fwd_kernel",
                 "reparam_bwd_kernel", "flash_kernel", "flash_tc_kernel", "gla_kernel",
-                "rmsnorm_kernel")
+                "gla_tc_kernel", "rmsnorm_kernel")
 
 
 def profile_summary(prof, wall_s: float, top: int = 8) -> dict:
@@ -964,19 +1141,20 @@ SERVE_RUNS = [
     ("zamba2-7b 12 layers, prompt 4096", "zamba2-7b", 12, 4, 4096, 8, 4),
     ("qwen3-4b 4 layers", "qwen3-4b", 4, 8, 512, 16, 4),
 ]
-BACKBONE_COUNTS = ("flash_attention", "flash_attention_tc", "gla", "rmsnorm")
+BACKBONE_COUNTS = ("flash_attention", "flash_attention_tc", "gla", "gla_tc", "rmsnorm")
 
 
 def backbone_launches_per_pass(cfg):
     """Kernel launches of one prefill and of one decode step, from the config:
-    bf16 attention takes the tensor-core flash kernel, f32 the SIMT one."""
+    bf16 attention and GLA take the tensor-core kernels, f32 the SIMT ones."""
     kinds = cfg.block_pattern
     n_attn, n_mamba = kinds.count("attn"), kinds.count("mamba2")
     norms = 2 * n_mamba + n_attn * (2 if cfg.d_ff else 1) + (2 * n_attn if cfg.qk_norm else 0) + 1
     tc = cfg.dtype == "bfloat16"
     prefill = {"flash_attention": 0 if tc else n_attn, "flash_attention_tc": n_attn if tc else 0,
-               "gla": n_mamba, "rmsnorm": norms}
-    decode = {"flash_attention": 0, "flash_attention_tc": 0, "gla": 0, "rmsnorm": norms}
+               "gla": 0 if tc else n_mamba, "gla_tc": n_mamba if tc else 0, "rmsnorm": norms}
+    decode = {"flash_attention": 0, "flash_attention_tc": 0, "gla": 0, "gla_tc": 0,
+              "rmsnorm": norms}
     return prefill, decode
 
 
@@ -997,7 +1175,7 @@ def profile_serve(torch, run, steps=2) -> dict:
             st["prefill"](st["theta"], st["eta_G"], st["eta_L"], st["prompt"])
             sync(torch)
             wall = time.perf_counter() - t0
-        out["prefill"] = profile_summary(prof, wall, top=12)
+        out["prefill"] = profile_summary(prof, wall, top=20)
         tok, cache = st["tok"], st["cache"]
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
@@ -1014,7 +1192,25 @@ def profile_serve(torch, run, steps=2) -> dict:
 def serve_runs(torch, kernel_modules, other_modules):
     """Each serve run with the backbone counters at 0 just before and read
     just after; asserts the launches each kernel owes the run, finite
-    logits, and that no other kernel launched."""
+    logits, that no other kernel launched, and that no prefill called
+    ``gla_final_state`` (mamba2's decode state comes from the GLA kernel)."""
+    from repro_torch.models.backbone import ssm
+
+    final_state_calls = []
+    real_final_state = ssm.gla_final_state
+
+    def counted_final_state(*args, **kw):
+        final_state_calls.append(1)
+        return real_final_state(*args, **kw)
+
+    ssm.gla_final_state = counted_final_state
+    try:
+        return _serve_runs(torch, kernel_modules, other_modules, final_state_calls)
+    finally:
+        ssm.gla_final_state = real_final_state
+
+
+def _serve_runs(torch, kernel_modules, other_modules, final_state_calls):
     from repro_torch.configs import get_config
     from repro_torch.launch.serve_backbone import serve
 
@@ -1027,6 +1223,7 @@ def serve_runs(torch, kernel_modules, other_modules):
         sync(torch)
         for m in kernel_modules + other_modules:
             m.reset_launches()
+        final_state_calls.clear()
         run = serve(cfg, batch=B, prompt_len=prompt, gen=gen_len, silos=silos,
                     device=torch.device(DEVICE))
         sync(torch)
@@ -1048,20 +1245,22 @@ def serve_runs(torch, kernel_modules, other_modules):
         }
         print(f"  {label}: prefill {res['prefill_ms']:.1f} ms ({res['prefill_tok_s']:.0f} tok/s), "
               f"decode {res['decode_ms_per_token']:.2f} ms/token ({res['decode_tok_s']:.0f} tok/s), "
-              f"peak {res['peak_gb']:.2f} GB, params {res['params']:,}, launches={counts}",
-              flush=True)
+              f"peak {res['peak_gb']:.2f} GB, params {res['params']:,}, launches={counts}, "
+              f"gla_final_state calls={len(final_state_calls)}", flush=True)
         assert bool(torch.isfinite(run.logits.float()).all()), label
         assert tuple(run.tokens.shape) == (B, gen_len), label
         assert counts == want, (label, counts, want)
         assert not any(others.values()), (label, others)
+        assert not final_state_calls, (label, "gla_final_state called", len(final_state_calls))
         for k in totals:
             totals[k] += counts[k]
         res["profile"] = profile_serve(torch, run)
         results.append(res)
         del run
-    # bf16 serving: every flash call took the tensor-core kernel, none the SIMT one.
-    assert totals["flash_attention"] == 0, totals
-    assert all(totals[k] > 0 for k in BACKBONE_COUNTS if k != "flash_attention"), totals
+    # bf16 serving: every flash and GLA call took the tensor-core kernel, none the SIMT one.
+    assert totals["flash_attention"] == 0 and totals["gla"] == 0, totals
+    assert all(totals[k] > 0 for k in BACKBONE_COUNTS if k not in ("flash_attention", "gla")), \
+        totals
     return totals, results
 
 
@@ -1347,16 +1546,23 @@ def backbone_timings(torch, attention, gla, rmsnorm, ref, gen):
                 peak=BF16_FLOPS, shape=[B, S, H, KV, hd]))
     for mode, B, S, H, N, P in GLA_TIMES:
         q, k, v, log_a = gla_inputs(torch, B, S, H, N, P, True, gen, bf16)
-        rows.append(dict(
-            name="gla", mode=mode,
-            ms=device_ms(torch, lambda q=q, k=k, v=v, a=log_a: gla.gla(q, k, v, a)),
-            plain_ms=device_ms(torch, lambda q=q, k=k, v=v, a=log_a: ref.gla_plain(
-                q, k, v, a, chunk=gla.CHUNK), reps=5, warmup=1),
-            library_ms=None,
-            # q, k: one (B, S, N) group each; v and y (B, S, H, P) bf16; log_a f32.
-            # Operations: the recurrence's 4 N P a (step, head).
-            nbytes=2 * B * S * N * 2 + 2 * B * S * H * P * 2 + B * S * H * 4,
-            flops=4 * N * P * B * S * H, peak=BF16_FLOPS, shape=[B, S, H, N, P]))
+        # The serve path's call (mamba2_prefill: y and the final state) carries
+        # the plain mode name; "_nostate" is y alone (mamba2_block).
+        for with_state in (True, False):
+            rows.append(dict(
+                name="gla", mode=mode + ("" if with_state else "_nostate"),
+                ms=device_ms(torch, lambda q=q, k=k, v=v, a=log_a, r=with_state:
+                             gla.gla(q, k, v, a, return_state=r)),
+                plain_ms=device_ms(torch, lambda q=q, k=k, v=v, a=log_a, r=with_state:
+                                   ref.gla_plain(q, k, v, a, chunk=gla.CHUNK, return_state=r),
+                                   reps=5, warmup=1),
+                library_ms=None,
+                # q, k: one (B, S, N) group each; v and y (B, S, H, P) bf16;
+                # log_a f32; the state (B, H, N, P) f32 when asked.
+                # Operations: the recurrence's 4 N P a (step, head).
+                nbytes=2 * B * S * N * 2 + 2 * B * S * H * P * 2 + B * S * H * 4
+                + (B * H * N * P * 4 if with_state else 0),
+                flops=4 * N * P * B * S * H, peak=BF16_FLOPS, shape=[B, S, H, N, P]))
     for mode, R, D in RMS_TIMES:
         x = torch.randn((R, D), generator=gen, device=DEVICE).to(bf16)
         w = (1.0 + 0.2 * torch.randn((D,), generator=gen, device=DEVICE)).to(bf16)
@@ -1403,9 +1609,9 @@ KERNELS = {
 }
 
 
-# The serve path's flash calls are bf16, so its entry counts the tensor-core
-# kernel's launches (the SIMT kernel is the f32 parity route).
-KERNEL_COUNTER = {"flash_attention": "flash_attention_tc"}
+# The serve path's flash and GLA calls are bf16, so their entries count the
+# tensor-core kernels' launches (the SIMT kernels are the f32 parity route).
+KERNEL_COUNTER = {"flash_attention": "flash_attention_tc", "gla": "gla_tc"}
 
 
 def kernels_line(rows, launches, errors):
@@ -1500,4 +1706,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    modes = {"--gla-check": gla_check_main, "--gla-mutants": gla_mutants_main}
+    if sys.argv[1:] and sys.argv[1] not in modes:
+        sys.exit(fail(f"unknown argument {sys.argv[1]!r}; takes none, or one of {sorted(modes)}"))
+    sys.exit(modes[sys.argv[1]]() if sys.argv[1:] else main())

@@ -28,7 +28,7 @@ from typing import Dict, Optional
 import torch
 
 from repro_torch.kernels import ref as _ref
-from repro_torch.kernels.wire import _on_cuda, _ptr, _raise_on, _unit_last
+from repro_torch.kernels.wire import _on_cuda, _ptr, _raise_on, _unit_last, tc_vector_loads
 
 LAUNCHES: Dict[str, int] = {"flash_attention": 0, "flash_attention_tc": 0}
 
@@ -80,15 +80,6 @@ def tc_smem_bytes(hd: int, q_rows: int) -> int:
 def _tc_smem(hd: int, q_rows: int, d: int) -> int:
     hdp = -(-hd // 16) * 16
     return 2 * (q_rows + (2 * d + 3) * TC_KEY_ROWS) * hdp
-
-
-def tc_vector_loads(*tensors: torch.Tensor) -> bool:
-    """True when the tensor-core kernel may copy 16-byte pieces: hd % 8 == 0
-    and every (batch, seq, head) row start 16-byte aligned (bf16)."""
-    for t in tensors:
-        if t.shape[-1] % 8 or t.data_ptr() % 16 or any(s % 8 for s in t.stride()[:3]):
-            return False
-    return True
 
 
 def flash_attention(

@@ -198,14 +198,16 @@ def gla_plain(
     v: torch.Tensor,  # (B, S, H, dv)
     log_a: torch.Tensor,  # (B, S, H) per-step log decay (<= 0)
     chunk: int = 64,
-) -> torch.Tensor:
+    return_state: bool = False,
+):
     """y_t = q_t^T (Σ_{s<=t} Π_{r=s+1..t} e^{log_a_r} k_s v_s^T), chunked.
 
     Within a chunk (q kᵀ ∘ D) v with D_ts = e^{L_t − L_s} masked to s <= t
     before the exp; across chunks (q·e^L) S_in, with S_out = e^{L_C} S_in
     + (k·e^{L_C − L})ᵀ v carried in f32. S is padded to a chunk multiple
     with identity steps (log_a 0, k = v = 0). All arithmetic in f32;
-    returns (B, S, H, dv) in q's dtype.
+    returns (B, S, H, dv) in q's dtype and, with ``return_state``, the
+    state after the last step, (B, H, dk, dv) f32.
     """
     B, S, H, dk = q.shape
     dv = v.shape[-1]
@@ -236,8 +238,8 @@ def gla_plain(
         state = state * torch.exp(total[:, i])[..., None, None] + chunk_kv[:, i]
     q_dec = qc * torch.exp(cum)[..., None]
     y_inter = torch.einsum("bnthd,bnhdv->bnthv", q_dec, torch.stack(states, dim=1))
-    y = (y_intra + y_inter).reshape(B, n * chunk, H, dv)
-    return y[:, :S].to(q.dtype)
+    y = (y_intra + y_inter).reshape(B, n * chunk, H, dv)[:, :S].to(q.dtype)
+    return (y, state) if return_state else y
 
 
 def rmsnorm_plain(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:

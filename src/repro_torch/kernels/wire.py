@@ -110,6 +110,16 @@ def _unit_last(t: torch.Tensor) -> torch.Tensor:
     return t if t.stride(-1) == 1 else t.contiguous()
 
 
+def tc_vector_loads(*tensors: torch.Tensor) -> bool:
+    """True when a tensor-core kernel may copy 16-byte pieces of these bf16
+    (B, S, H, d) tensors: d % 8 == 0 and every (batch, seq, head) row start
+    16-byte aligned."""
+    for t in tensors:
+        if t.shape[-1] % 8 or t.data_ptr() % 16 or any(s % 8 for s in t.stride()[:3]):
+            return False
+    return True
+
+
 def _on_cuda(x: torch.Tensor) -> bool:
     if x.device.type == "cpu":
         return False

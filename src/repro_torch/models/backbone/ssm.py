@@ -9,8 +9,12 @@ The JAX package runs the full-sequence recurrence with its jnp
 ``chunked_gla`` or, under ``cfg.use_pallas``, the Pallas GLA kernel — its
 TPU hot path (``_gla_dispatch``, ``ssm.py:207-213``). The port has one
 path: :func:`mamba2_block` and :func:`mamba2_prefill` call the GLA wrapper
-(:mod:`repro_torch.kernels.gla`: the CUDA kernel on the card, its plain
-chunked version on the CPU). :func:`gla_final_state` and
+(:mod:`repro_torch.kernels.gla`: the CUDA kernels on the card, its plain
+chunked version on the CPU). :func:`mamba2_prefill` takes its decode
+state from that same call (``return_state=True``: the kernel writes the
+state it holds after the last chunk), where the JAX package runs a second
+jnp pass over k and v (``gla_final_state``); the two differ in rounding
+only. :func:`gla_final_state`, the counterpart of that pass, and
 :func:`gla_decode_step` are plain torch, as they are jnp in the JAX package.
 
 mamba2's q and k are one (B, S, N) group broadcast over the heads; they
@@ -169,8 +173,7 @@ def mamba2_prefill(params, cfg, u):
     z, xBC, dt_raw, d_inner, N, H = _mamba2_split(params, cfg, u)
     x_conv, conv_state = _causal_conv(xBC, params["conv_w"], params["conv_b"])
     q, k, v, log_a, xh = _mamba2_qkva(params, cfg, x_conv, dt_raw, d_inner, N, H)
-    y = gla(q, k, v, log_a)
-    ssm_state = gla_final_state(k, v, log_a)
+    y, ssm_state = gla(q, k, v, log_a, return_state=True)
     out = _mamba2_out(params, cfg, y, xh, z, u.shape[:2], d_inner)
     return out, {"conv": conv_state, "ssm": ssm_state}
 
