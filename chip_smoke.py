@@ -19,8 +19,17 @@ non-zero):
      Newton–Schulz step at d from 1 to 1,970; the whole 40-step square
      root (one launch of the root kernel up to the wrapper's limit d, 40
      step calls past it) at d from 1 to the limit + 1, and against the 40
-     step calls at the path's (2, 5) and (6, 5); the reparam + STL forward
-     and backward at N up to 508,160 in f32 and bf16. Then the whole port
+     step calls at the path's (2, 5) and (6, 5). The combine at the main
+     path's shapes, the barycenter's (10, 50,177), glmm's (2, 5), (2, 20)
+     and (6, 20) with trim 0.2, P % 4 = 1, 2, 3, odd P in int8, J = 33
+     and 64 trimmed and x one element off 16 bytes, each case run twice
+     (bit-identical), and its shared-memory plan against the source's.
+     The reparam + STL forward at N = 1, 7, 4,097, 50,177 and 508,160 in
+     f32 and bf16, on aligned inputs (16-byte vectors) and views one
+     element off (the scalar route): z and logq against the plain version,
+     logq against the float64 sum and bit-identical over two calls back
+     to back (the ticket was reset), then calls on two streams at once;
+     the backward at the same N. Then the whole port
      on the card (fused wire, CUDA kernels) against the port on the CPU
      (flat wire, plain stages) on one injected random stream: hier_bnn at
      a small width, and the GLMM + Cholesky global family at full width,
@@ -45,7 +54,9 @@ non-zero):
      7,168, 2,560 and 128 with ragged row counts and rows at scales 2^-4
      to 2^4, on 16-byte vectors and, with x one element off 16 bytes, on
      the scalar route, each bf16 output also element by element within
-     one bf16 step of the plain value. And the backbone on the
+     one bf16 step of the plain value, and on plans where a few blocks
+     walk many rows of two to eight warps at scales 2^-12 to 2^12
+     (``RMS_WALKS``, 20 launches each). And the backbone on the
      card against the backbone on the CPU in f32: zamba2-7b at full width
      with one hybrid unit (6 layers), B = 2, prompt 32, greedy gen 4;
   3. the main paths at full width, each through ``Server(wire="fused")``
@@ -73,10 +84,16 @@ non-zero):
      layers (batch 8, prompt 512, gen 16); prefill and decode times, peak
      memory, then one more prefill and two more decode steps under
      ``torch.profiler``;
-  4. timings (CUDA events, median of 20 single launches, each queued
-     behind a sleep kernel so host overhead is excluded) of each kernel,
-     its plain version and, where one exists, PyTorch's own call(s)
-     computing the same function, beside the bound: the larger of bytes
+  4. timings of each kernel, its plain version and, where one exists,
+     PyTorch's own call(s) computing the same function: ``ms`` (CUDA
+     events, median of 20 single launches, each queued behind a sleep
+     kernel so host overhead is excluded; the inputs stay in L2 between
+     launches) and, for the kernel and the library call, ``run_ms`` (one
+     event pair around 64 launches back to back over copies of the inputs
+     that together exceed the 50 MB L2, divided by 64; none for a single
+     launch over 1 ms, nor for the square root's 40-call step route), and
+     an empty kernel's two times (``torch.cuda._sleep(0)``), the launch
+     floor; beside the bound: the larger of bytes
      at 3.35 TB/s and operations at 67 TFLOP/s for float32 inputs, at
      989 TFLOP/s (bf16 dense tensor cores) for bfloat16 inputs. The
      backbone's kernels at their serve shapes: flash attention (the
@@ -90,16 +107,25 @@ non-zero):
      limit and at d = 64.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
-``{"ok": true, "device": {...}}``.
+``{"ok": true, "device": {...}}``. ``python3 chip_smoke.py --timings``
+runs phases 1 and 4 alone (to time two checkouts in turns in one call).
 
+    python3 chip_smoke.py --mutants
     python3 chip_smoke.py --gla-mutants
 
-builds broken copies of the GLA tensor-core kernel (``GLA_MUTANTS``: a
-chunk's state update skipped, the ``cp.async`` wait removed, the chunk
-barrier removed, a wrong dv-slice offset, the S_in copy written into the
-one being read), each in a copy of ``src/repro_torch`` under ``build/``,
-runs phase 2's GLA check (``--gla-check``) on each and on the unchanged
-source, and exits 0 only when every mutant fails it and the source passes.
+build broken copies of a kernel, each in a copy of ``src/repro_torch``
+under ``build/``, run that kernel's phase-2 check on each and on the
+unchanged source (``--check GROUP``, one process each, all started
+together), and exit 0 only when every mutant fails its check and every
+unchanged source passes. ``--mutants``: the combine (``COMBINE_MUTANTS``:
+the tile barrier removed, each row's alignment taken from row 0's address,
+``rank < n - k`` as ``rank <= n - k``, every row dequantized with row 0's
+scale), the reparam forward (``REPARAM_MUTANTS``: the ticket never reset,
+the tail skipped, the last block's own partial left out) and RMSNorm
+(``RMS_MUTANTS``: the partials not double-buffered). ``--gla-mutants``:
+the GLA tensor-core kernel (``GLA_MUTANTS``: a chunk's state update
+skipped, the ``cp.async`` wait removed, the chunk barrier removed, a
+wrong dv-slice offset, the S_in copy written into the one being read).
 """
 from __future__ import annotations
 
@@ -238,6 +264,7 @@ def combine_cases(torch, J, P, gen):
         "mean_all_zero": dict(x=x, w=zeros),
         "mean_int8": dict(x=q, w=part, scales=s),
         "trim_0.34_partial": dict(x=x, w=part, trim_frac=0.34),
+        "trim_0.2": dict(x=x, w=ones, trim_frac=0.2),
         "trim_ties": dict(x=ties, w=ones, trim_frac=0.2),
         "trim_n0": dict(x=x, w=zeros, trim_frac=0.34),
         "trim_n1": dict(x=x, w=one_active, trim_frac=0.34),
@@ -246,22 +273,39 @@ def combine_cases(torch, J, P, gen):
     }
 
 
-def check_combine(torch, wire, ref, J, P, gen):
+def _shifted(torch, x, offset):
+    """A contiguous copy of ``x`` that starts ``offset`` elements into a buffer
+    (off 16-byte alignment for an offset that is not a multiple of 16 bytes)."""
+    buf = torch.empty((x.numel() + offset,), dtype=x.dtype, device=DEVICE)
+    out = buf[offset:].view(x.shape).copy_(x)
+    assert out.is_contiguous() and out.data_ptr() % 16
+    return out
+
+
+def check_combine(torch, wire, ref, J, P, gen, offset=0):
+    """Every combine case at (J, P) against the plain version, each run twice
+    (bit-identical); ``offset`` elements shift x (f32 or int8) off 16-byte
+    alignment. Returns the largest error at the main path's shape."""
     worst = 0.0
     for name, kw in combine_cases(torch, J, P, gen).items():
         x, w = kw["x"], kw["w"]
+        if offset:
+            x = _shifted(torch, x, offset)
+            name = f"{name}+{offset}"
         scales, tf = kw.get("scales"), kw.get("trim_frac")
         got = wire.fused_combine(x, w, scales=scales, trim_frac=tf)
+        again = wire.fused_combine(x, w, scales=scales, trim_frac=tf)
         mat = ref.int8_rows_dequant_ref(x, scales) if scales is not None else x
         want = (ref.masked_weighted_mean_ref(mat, w) if tf is None
                 else ref.masked_trimmed_mean_ref(mat, w, tf))
         sync(torch)
         err = float((got - want).abs().max())
         tol = 1e-5 * (1.0 + float(want.abs().max()))
-        print(f"  fused_combine {name:<18} ({J},{P}) max_abs={err:.3e} (<= {tol:.1e})",
-              flush=True)
-        assert err <= tol, name
-        worst = max(worst, err) if (J, P) == (MAIN_J, MAIN_P) else worst
+        same = bool(torch.equal(got, again))
+        print(f"  fused_combine {name:<20} ({J},{P}) max_abs={err:.3e} (<= {tol:.1e}), "
+              f"repeat bit-identical={same}", flush=True)
+        assert err <= tol and same, name
+        worst = max(worst, err) if (J, P) == (MAIN_J, MAIN_P) and not offset else worst
     return worst
 
 
@@ -278,8 +322,60 @@ def check_trim_33(torch, wire, ref, gen):
     assert err <= 1e-5
 
 
+# (J, P) of the combine checks besides the main path's: the barycenter's
+# moment rows, glmm's rows (J = 2 and J = 6 with trim 0.2), P % 4 = 1, 2
+# and 3 (the rows after the first start 4, 8 or 12 bytes off 16), odd P for
+# int8, P below one tile, one row, J = 16 (the largest in registers), and
+# J = 20, 33, 64 and 1,024 (the trimmed mean's staged route, 1,024 with
+# more than 48 KB of shared memory). At (64, 50,177) a tile is 128
+# columns, so warps other than warp 0, which finds n and k, read the tile
+# and the scalars: only the tile barrier makes them wait, and the cases
+# before leave other n, k and rows in shared memory.
+COMBINE_SHAPES = [(7, 4099), (10, 50_177), (2, 5), (2, 20), (6, 20), (5, 4097), (3, 4098),
+                  (1, 7), (16, 515), (20, 777), (33, 1001), (64, 50_177), (1024, 48)]
+
+
+def check_combine_plan(torch, wire):
+    """The staged trim's shared-memory plan equals the source's and fits, at
+    the checked shapes of more than ``DIRECT_ROWS`` rows and the largest J;
+    the direct routes use none."""
+    lib = wire._lib()
+    lib.repro_trim_smem_bytes.argtypes = [ctypes.c_int] * 3
+    lib.repro_trim_smem_bytes.restype = ctypes.c_longlong
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    shapes = [(MAIN_J, MAIN_P)] + COMBINE_SHAPES + [(32, 5000), (wire.MAX_TRIM_ROWS, 5000)]
+    for J, P in shapes:
+        for elt in (4, 1):
+            plan = wire.combine_plan(J, P, elt, True, sms)
+            if J <= wire.DIRECT_ROWS:
+                assert plan.smem_bytes == 0, (J, P, plan)
+                continue
+            got = lib.repro_trim_smem_bytes(J, plan.tile_cols, elt)
+            assert got == plan.smem_bytes <= wire.SMEM_LIMIT, (J, P, elt, plan)
+    for J, P, elt, trimmed in [(MAIN_J, MAIN_P, 4, False), (MAIN_J, MAIN_P, 1, True),
+                               (10, 50_177, 4, False), (64, 999, 4, True)]:
+        print(f"  fused_combine plan ({J},{P}) {'int8' if elt == 1 else 'f32'} "
+              f"{'trimmed' if trimmed else 'mean'}: {wire.combine_plan(J, P, elt, trimmed, sms)}",
+              flush=True)
+    print(f"  fused_combine staged-trim smem plan: {len(shapes)} shapes x f32/int8 agree with "
+          f"the source (<= {wire.SMEM_LIMIT})", flush=True)
+
+
+def check_combine_all(torch, wire, ref, gen):
+    """The combine kernel's card checks; returns the largest error at the
+    main path's shape."""
+    check_combine_plan(torch, wire)
+    worst = check_combine(torch, wire, ref, MAIN_J, MAIN_P, gen)
+    for J, P in COMBINE_SHAPES:
+        check_combine(torch, wire, ref, J, P, gen)
+    for J, P in [(MAIN_J, MAIN_P), (7, 4099)]:
+        check_combine(torch, wire, ref, J, P, gen, offset=1)
+    check_trim_33(torch, wire, ref, gen)
+    return worst
+
+
 NS_SHAPES = [(1, 1), (1, 5), (2, 5), (6, 5), (10, 5), (1, 64), (3, 65), (1, 257), (1, 1970)]
-REPARAM_NS = [1, 4097, 50_177, 508_160]  # 508,160 = hier_bnn's J x local dim
+REPARAM_NS = [1, 7, 4097, 50_177, 508_160]  # 508,160 = hier_bnn's J x local dim
 NS_PATH_SHAPES = [(1, 5), (2, 5), (6, 5)]  # the barycenter's roots: J = 2 and J = 6
 
 
@@ -364,35 +460,90 @@ def check_ns_step(torch, wire, ref, gen):
     return worst
 
 
+def reparam_inputs(torch, n, dtype, gen, shift=0):
+    """mu, ls, eps, dz of ``n`` elements; ``shift`` elements into their
+    buffers puts each off 16-byte alignment (the scalar route)."""
+    mu, ls, eps, dz = (torch.randn((n,), generator=gen, device=DEVICE) for _ in range(4))
+    out = [mu.to(dtype), (0.3 * ls - 1.0).to(dtype), eps.to(dtype), dz.to(dtype)]
+    return [_shifted(torch, t, shift) if shift else t for t in out]
+
+
+def logq_f64(torch, ls, eps):
+    e, l = eps.double(), ls.double()
+    return float((-0.5 * e * e - l - 0.5 * math.log(2.0 * math.pi)).sum())
+
+
+def check_reparam_fwd(torch, reparam, ref, n, dtype, gen, shift):
+    """One forward check: z against the plain version, logq against it and
+    the float64 sum, two calls back to back bit-identical (the ticket was
+    reset); returns z's error."""
+    mu, ls, eps, _ = reparam_inputs(torch, n, dtype, gen, shift)
+    plan = reparam.reparam_plan(n, mu.element_size(), shift == 0)
+    assert all(t.data_ptr() % 16 == 0 for t in (mu, ls, eps)) == (shift == 0)
+    z, lq = reparam.reparam_fwd(mu, ls, eps)
+    z2, lq2 = reparam.reparam_fwd(mu, ls, eps)
+    z0, lq0 = ref.reparam_stl_ref(mu, ls, eps)
+    sync(torch)
+    assert z.dtype == dtype and lq.dtype == torch.float32
+    err = float((z.float() - z0.float()).abs().max())
+    tol = 1e-5 * (1.0 + float(z0.float().abs().max()))
+    exact = logq_f64(torch, ls, eps)
+    rel = abs(float(lq) - float(lq0)) / abs(float(lq0))
+    rel64 = abs(float(lq) - exact) / abs(exact)
+    same = bool(torch.equal(lq, lq2) and torch.equal(z, z2))
+    route = f"vec {plan.vec}" if plan.vec > 1 else "scalar, 1 elt off"
+    print(f"  reparam_stl fwd N={n} {str(dtype)[6:]:<8} [{route}, grid {plan.grid}]: "
+          f"z max_abs={err:.3e} (<= {tol:.1e}), logq rel={rel:.2e} vs plain, {rel64:.2e} vs "
+          f"f64 (<= 1e-5), two calls bit-identical={same}", flush=True)
+    assert err <= tol and rel <= 1e-5 and rel64 <= 1e-5 and same, (n, dtype, shift)
+    return err
+
+
+def check_reparam_streams(torch, reparam, ref, gen):
+    """Calls on two streams at once, twice each: each logq right, so neither
+    stream's ticket was taken by the other's blocks."""
+    sets = [reparam_inputs(torch, n, torch.float32, gen)[:3] for n in (508_160, 50_177)]
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    sync(torch)
+    outs = [[], []]
+    for _ in range(2):
+        for i, (st, ins) in enumerate(zip(streams, sets, strict=True)):
+            with torch.cuda.stream(st):
+                outs[i].append(reparam.reparam_fwd(*ins))
+    sync(torch)
+    for i, ins in enumerate(sets):
+        exact = logq_f64(torch, ins[1], ins[2])
+        _, lq0 = ref.reparam_stl_ref(*ins)
+        for z, lq in outs[i]:
+            rel = abs(float(lq) - exact) / abs(exact)
+            assert rel <= 1e-5 and abs(float(lq) - float(lq0)) <= 1e-5 * abs(float(lq0)), (i, rel)
+        assert torch.equal(outs[i][0][1], outs[i][1][1])
+    print(f"  reparam_stl fwd on two streams at once, twice each (N = 508,160 and 50,177): "
+          f"logq right and repeated bit for bit on each", flush=True)
+
+
 def check_reparam(torch, reparam, ref, gen):
     """Forward and backward kernels against the plain versions, f32 and bf16;
     returns the largest elementwise error of each."""
     worst = {"reparam_stl_fwd": 0.0, "reparam_stl_bwd": 0.0}
     for n in REPARAM_NS:
         for dtype in (torch.float32, torch.bfloat16):
-            mu, ls, eps, dz = (torch.randn((n,), generator=gen, device=DEVICE) for _ in range(4))
-            mu, eps, dz = mu.to(dtype), eps.to(dtype), dz.to(dtype)
-            ls = (0.3 * ls - 1.0).to(dtype)
+            for shift in (0, 1):
+                err = check_reparam_fwd(torch, reparam, ref, n, dtype, gen, shift)
+                worst["reparam_stl_fwd"] = max(worst["reparam_stl_fwd"], err)
+            _, ls, eps, dz = reparam_inputs(torch, n, dtype, gen)
             dlq = torch.tensor(0.37, device=DEVICE)
-            z, lq = reparam.reparam_fwd(mu, ls, eps)
-            z0, lq0 = ref.reparam_stl_ref(mu, ls, eps)
             grads = reparam.reparam_bwd(ls, eps, dz, dlq)
             grads0 = ref.reparam_stl_bwd_ref(ls, eps, dz, dlq)
             sync(torch)
-            assert z.dtype == dtype and lq.dtype == torch.float32
-            err = float((z.float() - z0.float()).abs().max())
-            tol = 1e-5 * (1.0 + float(z0.float().abs().max()))
-            rel = float((lq - lq0).abs() / lq0.abs())
             berr = max(float((a.float() - b.float()).abs().max())
                        for a, b in zip(grads, grads0, strict=True))
             btol = 1e-5 * (1.0 + max(float(b.float().abs().max()) for b in grads0))
-            name = str(dtype).replace("torch.", "")
-            print(f"  reparam_stl N={n} {name}: z max_abs={err:.3e} (<= {tol:.1e}), "
-                  f"logq rel={rel:.2e} (<= 1e-5); backward max_abs={berr:.3e} "
+            print(f"  reparam_stl bwd N={n} {str(dtype)[6:]}: max_abs={berr:.3e} "
                   f"(<= {btol:.1e})", flush=True)
-            assert err <= tol and rel <= 1e-5 and berr <= btol, (n, name)
-            worst["reparam_stl_fwd"] = max(worst["reparam_stl_fwd"], err)
+            assert berr <= btol, (n, dtype)
             worst["reparam_stl_bwd"] = max(worst["reparam_stl_bwd"], berr)
+    check_reparam_streams(torch, reparam, ref, gen)
     # The autograd.Function launches both kernels on CUDA tensors.
     before = dict(reparam.LAUNCHES)
     mu = torch.randn((4097,), generator=gen, device=DEVICE, requires_grad=True)
@@ -636,10 +787,10 @@ def check_gla(torch, gla, ref, gen) -> float:
     return worst
 
 
-# Broken copies of csrc/gla.cu's tensor-core kernel, each of which check_gla
-# must fail (``python3 chip_smoke.py --gla-mutants``): (name, text in gla.cu,
-# its replacement). The dv-slice offset is wrong for the second slice only,
-# so dv = 65's last column is never written.
+# Broken copies of the kernels, each of which its card check must fail
+# (``python3 chip_smoke.py --mutants``, ``--gla-mutants``): (name, text in
+# the source, its replacement). GLA's dv-slice offset is wrong for the
+# second slice only, so dv = 65's last column is never written.
 GLA_MUTANTS = [
     ("state update skipped in chunk 1",
      "#pragma unroll\n    for (int kk2 = 0; kk2 < kC / 16; ++kk2) {\n      const int s0 = kk2 * 16",
@@ -656,72 +807,117 @@ GLA_MUTANTS = [
      "__nv_bfloat16* sh = m.s_hi(cur ^ 1);\n      __nv_bfloat16* sl = m.s_lo(cur ^ 1);",
      "__nv_bfloat16* sh = m.s_hi(cur);\n      __nv_bfloat16* sl = m.s_lo(cur);"),
 ]
+COMBINE_MUTANTS = [
+    ("tile barrier removed", "    cp_async_wait_all();\n    __syncthreads();  // the tile has landed",
+     "    cp_async_wait_all();  // the tile has landed"),
+    ("each row's alignment taken from row 0's address",
+     "reinterpret_cast<uintptr_t>(row_at(x, j, P, c)) % 16",
+     "reinterpret_cast<uintptr_t>(row_at(x, 0, P, c)) % 16"),
+    ("rank < n - k as rank <= n - k", "rank >= k && rank < n - k", "rank >= k && rank <= n - k"),
+    ("every row dequantized with row 0's scale", "  return scales[r];", "  return scales[0];"),
+]
+REPARAM_MUTANTS = [
+    ("ticket never reset", "    *scratch = 0u;  // the ticket counter, ready for the next call\n", ""),
+    ("tail skipped", "if (nvec * V + tid < n) lq +=", "if (false) lq +="),
+    ("the last block's own partial left out", "b == static_cast<int>(blockIdx.x) ? own",
+     "b == static_cast<int>(blockIdx.x) ? 0.0f"),
+]
+RMS_MUTANTS = [("partials not double-buffered (no buf ^= 1)", "      buf ^= 1;\n", "")]
+# group -> (source under csrc, its mutants); the group's name is its check.
+MUTANT_GROUPS = {
+    "combine": ("wire.cu", COMBINE_MUTANTS),
+    "reparam": ("reparam.cu", REPARAM_MUTANTS),
+    "rmsnorm": ("rmsnorm.cu", RMS_MUTANTS),
+    "gla": ("gla.cu", GLA_MUTANTS),
+}
+CHECK_SOURCES = {"combine": "wire", "reparam": "reparam", "rmsnorm": "rmsnorm", "gla": "gla"}
 
 
-def gla_check_main() -> int:
-    """``--gla-check``: build ``gla.cu`` and run :func:`check_gla` alone; the
-    last line says whether it passed (any error after the build fails it)."""
+def run_check(name, torch, gen):
+    """One kernel's card checks from phase 2, by group name."""
+    from repro_torch.kernels import gla, ref, reparam, rmsnorm, wire
+
+    checks = {
+        "combine": lambda: check_combine_all(torch, wire, ref, gen),
+        "reparam": lambda: check_reparam(torch, reparam, ref, gen),
+        "rmsnorm": lambda: check_rmsnorm_all(torch, rmsnorm, ref, gen),
+        "gla": lambda: check_gla(torch, gla, ref, gen),
+    }
+    checks[name]()
+
+
+def check_main(name) -> int:
+    """``--check NAME``: build the group's source and run its card checks
+    alone; the last line says whether they passed (any error after the
+    build fails them)."""
     import torch
 
     if not torch.cuda.is_available():
         return fail("torch.cuda.is_available() is false: this check needs a CUDA card")
+    if name not in MUTANT_GROUPS:
+        return fail(f"unknown check {name!r}; one of {sorted(MUTANT_GROUPS)}")
     sys.path.insert(0, str(SRC))
-    from repro_torch.kernels import build, gla, ref
+    from repro_torch.kernels import build
 
-    build.build("gla")
+    build.build(CHECK_SOURCES[name])
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(1234)
     try:
-        check_gla(torch, gla, ref, gen)
+        run_check(name, torch, gen)
         sync(torch)
     except Exception as e:  # an assertion, a launch error or a fault of the kernel
-        print(json.dumps({"gla_check": "fail", "why": f"{type(e).__name__}: {e}"[:300]}))
+        print(json.dumps({"check": name, "result": "fail", "why": f"{type(e).__name__}: {e}"[:300]}))
         return 1
-    print(json.dumps({"gla_check": "pass"}))
+    print(json.dumps({"check": name, "result": "pass"}))
     return 0
 
 
-def gla_mutants_main() -> int:
-    """``--gla-mutants``: the unchanged ``gla.cu`` and each of ``GLA_MUTANTS``
-    in a copy of this script and ``src/repro_torch`` under ``build/`` (each
-    builds into its own ``build/kernels``), checked by ``--gla-check`` in its
-    own process, all started together. 0 when the unchanged source passes
+def mutants_main(groups) -> int:
+    """The unchanged sources and each mutant of ``groups``, each in a copy
+    of this script and ``src/repro_torch`` under ``build/`` (each builds into
+    its own ``build/kernels``), checked by ``--check GROUP`` in its own
+    process, all started together. 0 when every unchanged source passes
     and every mutant fails."""
     import torch
 
     if not torch.cuda.is_available():
         return fail("torch.cuda.is_available() is false: this check needs a CUDA card")
     print(gpu_line(), flush=True)
-    source = (SRC / "repro_torch" / "csrc" / "gla.cu").read_text()
-    cases = [("unchanged", "", "")] + GLA_MUTANTS
+    cases = []
+    for group in groups:
+        src_name, mutants = MUTANT_GROUPS[group]
+        source = (SRC / "repro_torch" / "csrc" / src_name).read_text()
+        for name, old, new in [("unchanged", "", "")] + mutants:
+            assert not old or source.count(old) == 1, \
+                f"mutant {name!r}: its text is not in {src_name} once"
+            cases.append((group, src_name, name, source.replace(old, new) if old else None))
     env = {k: v for k, v in os.environ.items() if k != "REPRO_TORCH_BUILD_DIR"}
     (ROOT / "build").mkdir(exist_ok=True)
     results = []
-    with tempfile.TemporaryDirectory(prefix="gla_mutants_", dir=ROOT / "build") as tmp:
+    with tempfile.TemporaryDirectory(prefix="mutants_", dir=ROOT / "build") as tmp:
         procs = []
-        for i, (name, old, new) in enumerate(cases):
+        for i, (group, src_name, _, text) in enumerate(cases):
             copy = Path(tmp) / str(i)
             shutil.copytree(SRC / "repro_torch", copy / "src" / "repro_torch",
                             ignore=shutil.ignore_patterns("__pycache__"))
             shutil.copy2(Path(__file__), copy / "chip_smoke.py")
-            if old:
-                assert source.count(old) == 1, f"mutant {name!r}: its text is not in gla.cu once"
-                (copy / "src" / "repro_torch" / "csrc" / "gla.cu").write_text(
-                    source.replace(old, new))
+            if text is not None:
+                (copy / "src" / "repro_torch" / "csrc" / src_name).write_text(text)
             procs.append(subprocess.Popen(
-                [sys.executable, str(copy / "chip_smoke.py"), "--gla-check"],
+                [sys.executable, str(copy / "chip_smoke.py"), "--check", group],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env))
-        for (name, _, _), proc in zip(cases, procs, strict=True):
+        for (group, _, name, _), proc in zip(cases, procs, strict=True):
             out, _ = proc.communicate()
-            print(f"-- {name}\n{out}", end="", flush=True)
+            print(f"-- {group}: {name}\n{out}", end="", flush=True)
             last = out.strip().splitlines()[-1] if out.strip() else ""
-            if not last.startswith('{"gla_check"'):
-                raise RuntimeError(f"{name}: the check did not run (exit {proc.returncode})")
+            if not last.startswith('{"check"'):
+                raise RuntimeError(f"{group} {name}: the check did not run (exit {proc.returncode})")
             verdict = json.loads(last)
-            results.append({"mutant": name, "fails_check": verdict["gla_check"] == "fail",
+            results.append({"group": group, "mutant": name,
+                            "fails_check": verdict["result"] == "fail",
                             "why": verdict.get("why", "")})
-    print(json.dumps({"gla_mutants": results}), flush=True)
-    ok = not results[0]["fails_check"] and all(r["fails_check"] for r in results[1:])
+    print(json.dumps({"mutants": results}), flush=True)
+    ok = all(r["fails_check"] != (r["mutant"] == "unchanged") for r in results)
     return 0 if ok else 1
 
 
@@ -868,6 +1064,58 @@ def check_rmsnorm(torch, rmsnorm, ref, gen) -> float:
     return worst
 
 
+# Rows a few blocks walk with several warps a row (the rows' warps trade
+# partial sums through shared memory): (label, rows, D, x dtype, lanes a row,
+# grid). The rows are at scales 2^-12 .. 2^12 in a cycle of 25, so a row step
+# that took a partial of the block's previous or next row is off by a
+# factor of 2 or more; the row count leaves the last step part empty.
+RMS_WALKS = [
+    ("d3584_2_warps_a_row", 4 * 1024 + 3, 3584, "bfloat16", 64, 1),
+    ("d3584_8_warps_a_row", 2 * 1024 + 1, 3584, "bfloat16", 256, 2),
+    ("d4096_f32_8_warps_a_row", 2 * 1024 + 1, 4096, "float32", 256, 132),
+    ("d2560_4_warps_a_row", 4 * 1024 + 3, 2560, "bfloat16", 128, 132),
+]
+
+
+def check_rmsnorm_walk(torch, rmsnorm, ref, gen, repeats=20):
+    """The kernel on plans with a few blocks, each walking many row steps
+    of one or more multi-warp rows, launched ``repeats`` times each: every
+    output held element by element as in :func:`check_rmsnorm`."""
+    lib = rmsnorm._lib()
+    stream = torch.cuda.current_stream().cuda_stream
+    for label, rows, D, dt, lanes, grid in RMS_WALKS:
+        dtype = getattr(torch, dt)
+        scale = torch.exp2((torch.arange(rows, device=DEVICE) % 25 - 12).float())[:, None]
+        x = (torch.randn((rows, D), generator=gen, device=DEVICE) * scale).to(dtype)
+        w = (1.0 + 0.2 * torch.randn((D,), generator=gen, device=DEVICE)).to(dtype)
+        vec = 16 // x.element_size()
+        vpl = -(-D // (vec * lanes))
+        want = ref.rmsnorm_plain(x, w, 1e-6)
+        worst = 0.0
+        for _ in range(repeats):
+            out = torch.empty_like(x)
+            bf16 = int(dtype == torch.bfloat16)
+            err = lib.repro_rmsnorm(x.data_ptr(), w.data_ptr(), out.data_ptr(), rows, D, 1e-6,
+                                    bf16, bf16, 1, lanes, vpl, grid, stream)
+            assert err == 0, (label, err)
+            sync(torch)
+            g, ww = out.float(), want.float()
+            worst = max(worst, float(((g - ww).abs() / (RMS_BF16_STEP * ww.abs()
+                                                        + RMS_BF16_FLOOR)).max()))
+        print(f"  rmsnorm walk {label:<24} ({rows},{D}) {dt:<8} [{lanes} lanes x {vpl}, "
+              f"grid {grid}, {repeats} launches]: elementwise {worst:.3f} of 2^-7 |want| "
+              f"(<= 1)", flush=True)
+        assert worst <= 1.0, (label, worst)
+
+
+def check_rmsnorm_all(torch, rmsnorm, ref, gen) -> float:
+    """RMSNorm's card checks; returns the largest bf16 error on the vector
+    route at the serve path's widths."""
+    worst = check_rmsnorm(torch, rmsnorm, ref, gen)
+    check_rmsnorm_walk(torch, rmsnorm, ref, gen)
+    return worst
+
+
 def check_backbone_kernels(torch, attention, gla, rmsnorm, ref, gen):
     """Each kernel against its plain version, bf16 and f32; returns each
     kernel's largest error over its serve-path shapes in bf16."""
@@ -883,7 +1131,7 @@ def check_backbone_kernels(torch, attention, gla, rmsnorm, ref, gen):
         check_flash(torch, attention, ref, label, (B, Sq, Skv, H, KV, hd, causal, window, off),
                     torch.bfloat16, gen, layout)
     worst["gla"] = check_gla(torch, gla, ref, gen)
-    worst["rmsnorm"] = check_rmsnorm(torch, rmsnorm, ref, gen)
+    worst["rmsnorm"] = check_rmsnorm_all(torch, rmsnorm, ref, gen)
     return worst
 
 
@@ -959,8 +1207,10 @@ def check_backbone_cuda_vs_cpu(torch):
 
 
 # The port's kernels by symbol (csrc/*.cu), summed apart in each profile.
-PORT_KERNELS = ("upload_norm_kernel", "sum_partials_kernel", "upload_apply_kernel",
-                "upload_quant_kernel", "combine_kernel", "ns_t_kernel", "ns_update_kernel",
+PORT_KERNELS = ("upload_norm_kernel", "upload_apply_kernel",
+                "upload_quant_kernel", "combine_mean_kernel", "combine_trim_kernel",
+                "combine_trim_staged_kernel",
+                "ns_t_kernel", "ns_update_kernel",
                 "ns_root_small_kernel", "reparam_fwd_kernel",
                 "reparam_bwd_kernel", "flash_kernel", "flash_tc_kernel", "gla_kernel",
                 "gla_tc_kernel", "rmsnorm_kernel")
@@ -1287,6 +1537,78 @@ def device_ms(torch, fn, reps=20, warmup=3):
     return statistics.median(times)
 
 
+RUN_LAUNCHES = 64  # launches in one timed run
+RUN_BYTES = 64 << 20  # the run's copies of the inputs together: more than the 50 MB L2
+RUN_MAX_MS = 1.0  # a row whose single launch takes longer has no run column
+SM_HZ = 2.0e9  # at least the card's SM clock: sleep cycles from a host time
+
+
+def run_ms(torch, fn, args, launches=RUN_LAUNCHES, reps=5):
+    """Device ms a call over a run: one event pair around ``launches``
+    calls ``fn(*copy)`` back to back, divided by ``launches``, the median of
+    ``reps`` runs. Call i takes copy i % c of ``args``, with c copies that
+    together hold at least ``RUN_BYTES`` (at most ``launches``; one when
+    ``args`` already do), so each call reads its inputs from device memory,
+    as the bound assumes; inputs under 1 MB stay in L2 all the same. Each
+    run is queued behind a sleep kernel that outlasts the host's issue of
+    the run, and the start event must still be pending when the last call
+    is issued, so the card runs the calls back to back and the time is the
+    device's, not the host's."""
+    nbytes = sum(t.untyped_storage().nbytes() for t in args)
+    copies = 1 if nbytes == 0 else min(launches, max(1, -(-RUN_BYTES // nbytes)))
+    sets = [tuple(args)] + [tuple(t.clone() for t in args) for _ in range(copies - 1)]
+    for i in range(copies):
+        fn(*sets[i])
+    sync(torch)
+    t0 = time.perf_counter()
+    for i in range(launches):
+        fn(*sets[i % copies])
+    host_s = time.perf_counter() - t0
+    sync(torch)
+    cycles = max(SLEEP_CYCLES, int(4 * host_s * SM_HZ))
+    times = []
+    while len(times) < reps:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
+        for i in range(launches):
+            fn(*sets[i % copies])
+        end.record()
+        pending = not start.query()
+        end.synchronize()
+        if pending:
+            times.append(start.elapsed_time(end) / launches)
+        else:  # the host was still issuing when the run began: sleep longer
+            cycles *= 4
+            assert cycles < 1e12, "the host cannot stay ahead of the run"
+    return statistics.median(times)
+
+
+def timed(torch, fn, args, run=True, **kw):
+    """``(ms, run_ms)`` of ``fn(*args)``: one launch behind a sleep
+    (:func:`device_ms`), and a run of launches (:func:`run_ms`), which a
+    row whose single launch exceeds ``RUN_MAX_MS`` skips (None), as does a
+    call of many launches (``run=False``: a run of them would fill the
+    card's launch queue before the sleep ends)."""
+    ms = device_ms(torch, lambda: fn(*args), **kw)
+    return ms, (run_ms(torch, fn, args) if run and ms <= RUN_MAX_MS else None)
+
+
+def time_row(torch, name, mode, kernel, plain, library=None, **row):
+    """A phase-4 row: the kernel and the library call (``(fn, args)`` each,
+    or None) timed both ways, the plain version (a no-argument call) one
+    launch at a time."""
+    fn, args = kernel
+    ms, run = timed(torch, fn, args, run=row.pop("run", True), **row.pop("kernel_kw", {}))
+    lib_ms = lib_run = None
+    if library is not None:
+        lib_ms, lib_run = timed(torch, *library)
+    plain_ms = device_ms(torch, plain, **row.pop("plain_kw", {}))
+    return dict(name=name, mode=mode, ms=ms, run_ms=run, plain_ms=plain_ms, library_ms=lib_ms,
+                library_run_ms=lib_run, **row)
+
+
 def timings(np, torch, wire, ref, reparam, attention, gla, rmsnorm, gen):
     J, P = MAIN_J, MAIN_P
     x = torch.randn((J, P), generator=gen, device=DEVICE)
@@ -1297,30 +1619,39 @@ def timings(np, torch, wire, ref, reparam, attention, gla, rmsnorm, gen):
     f4 = 4
     rows = []
     col = ones[:, None]
+    # The launch floor: one launch that does no work (PyTorch's spin kernel
+    # asked to spin 0 cycles), timed both ways.
+    floor_ms, floor_run = timed(torch, lambda: torch.cuda._sleep(0), ())
+    rows.append(dict(name="empty_kernel", mode="launch_floor", ms=floor_ms, run_ms=floor_run,
+                     plain_ms=None, library_ms=None, library_run_ms=None, nbytes=0, flops=0,
+                     shape=[]))
     uploads = {
         # mode: (kwargs, bytes moved: inputs read once + outputs written once,
         #        one PyTorch call computing the same function, or None)
         # SFVI: a masked copy (fallback 0) -> x * mask
-        "sfvi": (dict(mask=ones), J * P * f4 * 2 + J * f4, lambda: x * col),
+        "sfvi": (dict(mask=ones), J * P * f4 * 2 + J * f4, lambda x: x * col),
         # SFVI-Avg without clip: masked select of the reference -> lerp
         "sfvi_avg": (dict(mask=ones, reference=refrow),
                      J * P * f4 * 2 + P * f4 + J * f4,
-                     lambda: torch.lerp(refrow, x, col)),
+                     lambda x: torch.lerp(refrow, x, col)),
         # clip + DP + int8: no single PyTorch call
-        "sfvi_avg_int8_dp": (dict(mask=ones, reference=refrow, noise=noise,
-                                  clip_norm=0.3, noise_multiplier=0.3, quantize=True),
+        "sfvi_avg_int8_dp": (dict(mask=ones, reference=refrow, clip_norm=0.3,
+                                  noise_multiplier=0.3, quantize=True),
                              J * P * f4 * 2 + P * f4 + J * f4 + J * P + J * f4, None),
     }
     for mode, (kw, nbytes, library) in uploads.items():
+        dp = "noise_multiplier" in kw
+        args = (x, noise) if dp else (x,)
+
+        def upload(x, nz=None, kw=kw, dp=dp):
+            return wire.fused_upload(x, **kw, **({"noise": nz} if dp else {}))
+
         if library is not None:  # the yardstick computes the same function
-            assert float((library() - wire.fused_upload(x, **kw)).abs().max()) <= 1e-6, mode
-        flops = 12 * J * P
-        rows.append(dict(
-            name="fused_upload", mode=mode,
-            ms=device_ms(torch, lambda kw=kw: wire.fused_upload(x, **kw)),
-            plain_ms=device_ms(torch, lambda kw=kw: ref.wire_upload_ref(x, **kw)),
-            library_ms=None if library is None else device_ms(torch, library),
-            nbytes=nbytes, flops=flops))
+            assert float((library(x) - upload(x)).abs().max()) <= 1e-6, mode
+        rows.append(time_row(
+            torch, "fused_upload", mode, (upload, args),
+            lambda kw=kw, dp=dp: ref.wire_upload_ref(x, **kw, **({"noise": noise} if dp else {})),
+            None if library is None else (library, (x,)), nbytes=nbytes, flops=12 * J * P))
     w = ones
     combines = {
         "mean": (dict(), x, J * P * f4 + J * f4 + P * f4, 2 * J * P),
@@ -1335,14 +1666,11 @@ def timings(np, torch, wire, ref, reparam, attention, gla, rmsnorm, gen):
                 return ref.masked_trimmed_mean_ref(m, w, kw["trim_frac"])
             return ref.masked_weighted_mean_ref(m, w)
 
-        library = None
-        if mode == "mean":
-            denom = torch.sum(w)
-            library = device_ms(torch, lambda: torch.mv(x.T, w) / denom)
-        rows.append(dict(
-            name="fused_combine", mode=mode,
-            ms=device_ms(torch, lambda kw=kw, mat=mat: wire.fused_combine(mat, w, **kw)),
-            plain_ms=device_ms(torch, plain), library_ms=library,
+        denom = torch.sum(w)
+        rows.append(time_row(
+            torch, "fused_combine", mode,
+            (lambda mat, kw=kw: wire.fused_combine(mat, w, **kw), (mat,)), plain,
+            (lambda x: torch.mv(x.T, w) / denom, (x,)) if mode == "mean" else None,
             nbytes=nbytes, flops=flops))
     # The combine kernel at the barycenter's shapes: the glmm means (2, 5)
     # and hier_bnn's moment rows (10, 50,177).
@@ -1350,11 +1678,11 @@ def timings(np, torch, wire, ref, reparam, attention, gla, rmsnorm, gen):
         xc = torch.randn((Jc, Pc), generator=gen, device=DEVICE)
         wc = torch.ones((Jc,), device=DEVICE)
         denom = torch.sum(wc)
-        rows.append(dict(
-            name="fused_combine", mode=f"mean_{Jc}x{Pc}",
-            ms=device_ms(torch, lambda xc=xc, wc=wc: wire.fused_combine(xc, wc)),
-            plain_ms=device_ms(torch, lambda xc=xc, wc=wc: ref.masked_weighted_mean_ref(xc, wc)),
-            library_ms=device_ms(torch, lambda xc=xc, wc=wc, denom=denom: torch.mv(xc.T, wc) / denom),
+        rows.append(time_row(
+            torch, "fused_combine", f"mean_{Jc}x{Pc}",
+            (lambda xc, wc=wc: wire.fused_combine(xc, wc), (xc,)),
+            lambda xc=xc, wc=wc: ref.masked_weighted_mean_ref(xc, wc),
+            (lambda xc, wc=wc, denom=denom: torch.mv(xc.T, wc) / denom, (xc,)),
             nbytes=Jc * Pc * f4 + Jc * f4 + Pc * f4, flops=2 * Jc * Pc, shape=[Jc, Pc]))
     rows += ns_timings(torch, wire, ref, gen) + reparam_timings(torch, reparam, ref, gen)
     rows += backbone_timings(torch, attention, gla, rmsnorm, ref, gen)
@@ -1433,37 +1761,38 @@ def ns_timings(torch, wire, ref, gen):
         z = torch.randn((B, d, d), generator=gen, device=DEVICE) / math.sqrt(d)
         half3 = (1.5 * torch.eye(d, device=DEVICE)).expand(B, d, d)
 
-        def library(y=y, z=z, half3=half3):
+        def library(y, z, half3):
             t = torch.baddbmm(half3, z, y, alpha=-0.5)
             return torch.bmm(y, t), torch.bmm(t, z)
 
-        got, want = library(), ref.newton_schulz_step_ref(y, z)
+        got, want = library(y, z, half3), ref.newton_schulz_step_ref(y, z)
         assert max(float((a - b).abs().max()) for a, b in zip(got, want, strict=True)) <= 1e-4
-        rows.append(dict(
-            name="newton_schulz_step", mode=f"B{B}_d{d}",
-            ms=device_ms(torch, lambda y=y, z=z: wire.newton_schulz_step(y, z)),
-            plain_ms=device_ms(torch, lambda y=y, z=z: ref.newton_schulz_step_ref(y, z)),
-            library_ms=device_ms(torch, library),
+        rows.append(time_row(
+            torch, "newton_schulz_step", f"B{B}_d{d}",
+            (lambda y, z: wire.newton_schulz_step(y, z), (y, z)),
+            lambda y=y, z=z: ref.newton_schulz_step_ref(y, z),
+            (library, (y, z, half3)),
             # y, z read once and y t, t z written once; 3 products of 2 d^3
             nbytes=B * 4 * d * d * 4, flops=B * 3 * 2 * d**3, shape=[B, d, d]))
     for B, d in NS_PATH_SHAPES + [(1, lim), (1, lim + 1), (1, 64)]:
         spd = spd_batch(torch, B, d, gen)
 
-        def steps(spd=spd):
+        def steps(spd):
             return ref.newton_schulz_sqrtm_ref(spd, 40, step=wire.newton_schulz_step)
 
         # Up to the limit the root kernel, with the 40-step route beside it;
         # past it the wrapper's own route is the 40 step calls.
-        root = (lambda spd=spd: wire._sqrtm_root(spd, 40)) if d <= lim else steps
-        rows.append(dict(
-            name="sqrtm_newton_schulz", mode=f"B{B}_d{d}" + ("_step_route" if d > lim else ""),
-            ms=device_ms(torch, root, **({} if d <= lim else dict(reps=5, warmup=1))),
-            plain_ms=device_ms(torch, lambda spd=spd: ref.newton_schulz_sqrtm_ref(spd, 40),
-                               reps=5, warmup=1),
-            library_ms=None,
-            steps_ms=device_ms(torch, steps, reps=5, warmup=1) if d <= lim else None,
-            wall_ms=wall_ms(torch, root, **({} if d <= lim else dict(reps=5, warmup=1))),
-            steps_wall_ms=wall_ms(torch, steps, reps=5, warmup=1) if d <= lim else None,
+        root = (lambda spd: wire._sqrtm_root(spd, 40)) if d <= lim else steps
+        slow = {} if d <= lim else dict(reps=5, warmup=1)
+        rows.append(time_row(
+            torch, "sqrtm_newton_schulz", f"B{B}_d{d}" + ("_step_route" if d > lim else ""),
+            (root, (spd,)), lambda spd=spd: ref.newton_schulz_sqrtm_ref(spd, 40),
+            kernel_kw=slow, plain_kw=dict(reps=5, warmup=1), run=d <= lim,
+            steps_ms=device_ms(torch, lambda spd=spd: steps(spd), reps=5, warmup=1)
+            if d <= lim else None,
+            wall_ms=wall_ms(torch, lambda spd=spd: root(spd), **slow),
+            steps_wall_ms=wall_ms(torch, lambda spd=spd: steps(spd), reps=5, warmup=1)
+            if d <= lim else None,
             # the matrices read once and the roots written once; 40 steps of
             # 3 products of 2 d^3 (norm and rescale aside)
             nbytes=2 * B * d * d * 4, flops=B * 40 * 3 * 2 * d**3, shape=[B, d, d]))
@@ -1479,19 +1808,16 @@ def reparam_timings(torch, reparam, ref, gen):
         mu, ls, eps, dz = (torch.randn((n,), generator=gen, device=DEVICE) for _ in range(4))
         ls = 0.3 * ls - 1.0
         dlq = torch.tensor(0.37, device=DEVICE)
-        rows.append(dict(
-            name="reparam_stl_fwd", mode=f"f32_N{n}",
-            ms=device_ms(torch, lambda mu=mu, ls=ls, eps=eps: reparam.reparam_fwd(mu, ls, eps)),
-            plain_ms=device_ms(torch, lambda mu=mu, ls=ls, eps=eps: ref.reparam_stl_ref(mu, ls, eps)),
-            library_ms=device_ms(torch, lambda mu=mu, ls=ls, eps=eps: torch.addcmul(mu, ls.exp(), eps)),
+        rows.append(time_row(
+            torch, "reparam_stl_fwd", f"f32_N{n}", (reparam.reparam_fwd, (mu, ls, eps)),
+            lambda mu=mu, ls=ls, eps=eps: ref.reparam_stl_ref(mu, ls, eps),
+            (lambda mu, ls, eps: torch.addcmul(mu, ls.exp(), eps), (mu, ls, eps)),
             nbytes=16 * n + 4, flops=5 * n, shape=[n]))
-        rows.append(dict(
-            name="reparam_stl_bwd", mode=f"f32_N{n}",
-            ms=device_ms(torch, lambda ls=ls, eps=eps, dz=dz, dlq=dlq:
-                         reparam.reparam_bwd(ls, eps, dz, dlq)),
-            plain_ms=device_ms(torch, lambda ls=ls, eps=eps, dz=dz, dlq=dlq:
-                               ref.reparam_stl_bwd_ref(ls, eps, dz, dlq)),
-            library_ms=None, nbytes=24 * n + 4, flops=6 * n, shape=[n]))
+        rows.append(time_row(
+            torch, "reparam_stl_bwd", f"f32_N{n}",
+            (lambda ls, eps, dz, dlq=dlq: reparam.reparam_bwd(ls, eps, dz, dlq), (ls, eps, dz)),
+            lambda ls=ls, eps=eps, dz=dz, dlq=dlq: ref.reparam_stl_bwd_ref(ls, eps, dz, dlq),
+            nbytes=24 * n + 4, flops=6 * n, shape=[n]))
     return rows
 
 
@@ -1524,39 +1850,38 @@ def backbone_timings(torch, attention, gla, rmsnorm, ref, gen):
                 for _ in range(2))
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
 
-        def library(qt=qt, kt=kt, vt=vt):
+        def library(qt, kt, vt):
             return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
 
-        lib_err = float((library().transpose(1, 2).float()
+        lib_err = float((library(qt, kt, vt).transpose(1, 2).float()
                          - attention.flash_attention(q, k, v).float()).abs().max())
         assert lib_err <= 2e-2 * (1 + float(v.float().abs().max())), (mode, lib_err)
         nbytes, flops = flash_work(B, S, S, H, KV, hd, 2)
-        plain_ms = device_ms(torch, lambda q=q, k=k, v=v: ref.flash_attention_plain(q, k, v),
-                             reps=5, warmup=1)
-        library_ms = device_ms(torch, library)
         # The tensor-core kernel with one (64 q rows) and two (128) warpgroups
         # a block; the wrapper's choice carries the plain mode name.
         for q_rows in attention.TC_Q_ROWS:
-            rows.append(dict(
-                name="flash_attention",
-                mode=mode if q_rows == attention.tc_q_rows(S) else f"{mode}_q{q_rows}",
-                ms=device_ms(torch, lambda q=q, k=k, v=v, r=q_rows:
-                             attention.flash_attention(q, k, v, q_rows=r)),
-                plain_ms=plain_ms, library_ms=library_ms, nbytes=nbytes, flops=flops,
-                peak=BF16_FLOPS, shape=[B, S, H, KV, hd]))
+            rows.append(time_row(
+                torch, "flash_attention",
+                mode if q_rows == attention.tc_q_rows(S) else f"{mode}_q{q_rows}",
+                (lambda q, k, v, r=q_rows: attention.flash_attention(q, k, v, q_rows=r),
+                 (q, k, v)),
+                lambda q=q, k=k, v=v: ref.flash_attention_plain(q, k, v),
+                (library, (qt, kt, vt)), plain_kw=dict(reps=5, warmup=1),
+                nbytes=nbytes, flops=flops, peak=BF16_FLOPS, shape=[B, S, H, KV, hd]))
     for mode, B, S, H, N, P in GLA_TIMES:
         q, k, v, log_a = gla_inputs(torch, B, S, H, N, P, True, gen, bf16)
+        qg, kg = q[:, :, :1], k[:, :, :1]  # the (B, S, 1, N) groups mamba2 expands
         # The serve path's call (mamba2_prefill: y and the final state) carries
         # the plain mode name; "_nostate" is y alone (mamba2_block).
         for with_state in (True, False):
-            rows.append(dict(
-                name="gla", mode=mode + ("" if with_state else "_nostate"),
-                ms=device_ms(torch, lambda q=q, k=k, v=v, a=log_a, r=with_state:
-                             gla.gla(q, k, v, a, return_state=r)),
-                plain_ms=device_ms(torch, lambda q=q, k=k, v=v, a=log_a, r=with_state:
-                                   ref.gla_plain(q, k, v, a, chunk=gla.CHUNK, return_state=r),
-                                   reps=5, warmup=1),
-                library_ms=None,
+            rows.append(time_row(
+                torch, "gla", mode + ("" if with_state else "_nostate"),
+                (lambda qg, kg, v, a, r=with_state, H=H:
+                 gla.gla(qg.expand(-1, -1, H, -1), kg.expand(-1, -1, H, -1), v, a,
+                         return_state=r), (qg, kg, v, log_a)),
+                lambda q=q, k=k, v=v, a=log_a, r=with_state:
+                ref.gla_plain(q, k, v, a, chunk=gla.CHUNK, return_state=r),
+                plain_kw=dict(reps=5, warmup=1),
                 # q, k: one (B, S, N) group each; v and y (B, S, H, P) bf16;
                 # log_a f32; the state (B, H, N, P) f32 when asked.
                 # Operations: the recurrence's 4 N P a (step, head).
@@ -1567,18 +1892,16 @@ def backbone_timings(torch, attention, gla, rmsnorm, ref, gen):
         x = torch.randn((R, D), generator=gen, device=DEVICE).to(bf16)
         w = (1.0 + 0.2 * torch.randn((D,), generator=gen, device=DEVICE)).to(bf16)
 
-        def library(x=x, w=w, D=D):
+        def library(x, w=w, D=D):
             return F.rms_norm(x, (D,), weight=w, eps=1e-6)
 
-        lib_err = float((library().float() - rmsnorm.rmsnorm(x, w).float()).abs().max())
+        lib_err = float((library(x).float() - rmsnorm.rmsnorm(x, w).float()).abs().max())
         assert lib_err <= 2e-2 * (1 + float(x.float().abs().max())), (mode, lib_err)
         dst = torch.empty_like(x)
         plan = rmsnorm._rmsnorm_plan(R, D, x, w)
-        rows.append(dict(
-            name="rmsnorm", mode=mode,
-            ms=device_ms(torch, lambda x=x, w=w: rmsnorm.rmsnorm(x, w)),
-            plain_ms=device_ms(torch, lambda x=x, w=w: ref.rmsnorm_plain(x, w)),
-            library_ms=device_ms(torch, library),
+        rows.append(time_row(
+            torch, "rmsnorm", mode, (lambda x, w=w: rmsnorm.rmsnorm(x, w), (x,)),
+            lambda x=x, w=w: ref.rmsnorm_plain(x, w), (library, (x,)),
             # a device copy of x: one read and one write of the same bytes,
             # the practical floor under a single pass
             copy_ms=device_ms(torch, lambda x=x, dst=dst: dst.copy_(x)),
@@ -1633,11 +1956,14 @@ def kernels_line(rows, launches, errors):
             "max_abs_err": errors[name],
             "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+            "run_ms": row["run_ms"], "library_run_ms": row["library_run_ms"],
         })
     return out
 
 
-def main() -> int:
+def main(timings_only: bool = False) -> int:
+    """The smoke check; ``timings_only`` (``--timings``) runs phases 1 and 4
+    alone and prints the timing rows, no ``kernels`` or ``ok`` line."""
     import numpy as np
     import torch
 
@@ -1664,14 +1990,16 @@ def main() -> int:
     # Phase 2: kernels against their plain versions, then the port end to end.
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(1234)
+    if timings_only:
+        print("phase 4: timings", flush=True)
+        timings(np, torch, wire, ref, reparam, attention, gla, rmsnorm, gen)
+        return 0
     print("phase 2: kernels vs plain versions", flush=True)
     err_up = check_upload(torch, wire, ref, MAIN_J, MAIN_P, gen)
     for J, P in UPLOAD_SHAPES:
         check_upload(torch, wire, ref, J, P, gen)
     check_upload(torch, wire, ref, MAIN_J, MAIN_P, gen, offset=1)
-    err_co = check_combine(torch, wire, ref, MAIN_J, MAIN_P, gen)
-    check_combine(torch, wire, ref, 7, 4099, gen)
-    check_trim_33(torch, wire, ref, gen)
+    err_co = check_combine_all(torch, wire, ref, gen)
     err_ns = check_ns_step(torch, wire, ref, gen)
     err_rp = check_reparam(torch, reparam, ref, gen)
     check_port_cuda_vs_cpu(np, torch)
@@ -1706,7 +2034,13 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    modes = {"--gla-check": gla_check_main, "--gla-mutants": gla_mutants_main}
-    if sys.argv[1:] and sys.argv[1] not in modes:
-        sys.exit(fail(f"unknown argument {sys.argv[1]!r}; takes none, or one of {sorted(modes)}"))
-    sys.exit(modes[sys.argv[1]]() if sys.argv[1:] else main())
+    modes = {"--mutants": lambda: mutants_main(["combine", "reparam", "rmsnorm"]),
+             "--gla-mutants": lambda: mutants_main(["gla"]),
+             "--timings": lambda: main(timings_only=True)}
+    args = sys.argv[1:]
+    if args[:1] == ["--check"] and len(args) == 2:
+        sys.exit(check_main(args[1]))
+    if args and (len(args) > 1 or args[0] not in modes):
+        sys.exit(fail(f"unknown arguments {args!r}; takes none, one of {sorted(modes)}, "
+                      f"or --check with one of {sorted(MUTANT_GROUPS)}"))
+    sys.exit(modes[args[0]]() if args else main())

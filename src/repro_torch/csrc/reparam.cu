@@ -5,8 +5,8 @@
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared -Xcompiler -fPIC
 // into a shared library with a plain C interface, loaded with ctypes. Every
 // entry launches on the caller's stream, allocates nothing (the Python
-// wrapper allocates outputs and the partials with torch.empty) and returns
-// cudaGetLastError() after each launch. Inputs are f32 or bf16 (all three of
+// wrapper allocates the outputs, and keeps the forward's scratch) and returns
+// cudaGetLastError() after its launch. Inputs are f32 or bf16 (all three of
 // one type); the arithmetic is f32.
 //
 // ---------------------------------------------------------------------------
@@ -17,13 +17,27 @@
 //   logq = sum_i (-0.5 eps_i^2 - ls_i - 0.5 log 2 pi)      (f32 scalar)
 //
 // What bounds it: bytes (16 B an element in f32, 8 in bf16, a few flops).
-// Design: launch 1 gives each block `block` consecutive elements (the JAX
-// kernel's block, 4096 by default); its 256 threads stride over them,
-// write z, and reduce their logq terms (warp shuffles, then shared memory)
-// to ONE f32 partial per block. The tail block masks past N itself, so no
-// padding is needed (the JAX kernel pads with eps = ls = 0 and corrects the
-// pad's constant terms afterwards; the sum is the same). Launch 2 sums the
-// partials in one block in a fixed order: deterministic, no atomicAdd.
+// Design: ONE launch (the plan is kernels/reparam.py reparam_plan).
+//   * Loads and stores are 16 bytes (float4, or 8 bf16 values) when all
+//     four pointers are 16-byte aligned, with the N % V elements past the
+//     last whole vector taken one a thread; else every element is scalar.
+//   * The grid is sized to the card, not to a block of elements: one
+//     vector a thread, capped at the SMs times the 256-thread blocks an SM
+//     holds, and a grid-stride loop past that, so every SM has enough
+//     warps to keep the bytes in flight.
+//   * Each block reduces its logq terms (warp shuffles, then shared memory)
+//     to one partial and writes it to the scratch. Thread 0 then takes a
+//     ticket (an acquire-release add on the scratch's counter); the block
+//     that draws the last ticket sums all partials in index order (each
+//     thread's few at once, then the same block tree), writes logq and
+//     sets the counter back to 0 for the next call. No atomic touches a
+//     value, so a run repeats bit for bit for a given N and card.
+//   * The scratch (the counter, then the partials) is the wrapper's, one
+//     per (device, stream), zeroed once: calls on one stream run in turn,
+//     calls on two streams never share a counter.
+// The JAX kernel pads to its block with eps = ls = 0 and corrects the
+// pad's constant terms afterwards; here nothing is padded, and the sum is
+// the same.
 //
 // ---------------------------------------------------------------------------
 // Backward  (replaces src/repro/kernels/reparam.py:39 _reparam_bwd_kernel /
@@ -42,11 +56,12 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kSumThreads = 1024;
+constexpr int kMaxParts = 8;  // the forward's grid is at most kMaxParts * kThreads blocks
 constexpr float kHalfLog2Pi = 0.91893853320467274178f;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
@@ -74,31 +89,113 @@ __device__ __forceinline__ float block_sum(float v) {
   return v;
 }
 
-template <typename T>
+// V elements of T at p as f32: one 16-byte load when V * sizeof(T) == 16.
+template <typename T, int V>
+__device__ __forceinline__ void load_f32(const T* __restrict__ p, float (&f)[V]) {
+  if constexpr (V == 1) {
+    f[0] = to_f32(*p);
+  } else {
+    const uint4 u = __ldg(reinterpret_cast<const uint4*>(p));
+    const unsigned int w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+    for (int i = 0; i < V; ++i) {
+      if constexpr (V == 4) {
+        f[i] = __uint_as_float(w[i]);
+      } else {  // bf16 pairs: the lower element in the low half
+        f[i] = __uint_as_float((i & 1) ? (w[i >> 1] & 0xffff0000u) : (w[i >> 1] << 16));
+      }
+    }
+  }
+}
+
+// V f32 values rounded to T (to nearest even) and stored at p.
+template <typename T, int V>
+__device__ __forceinline__ void store_f32(T* __restrict__ p, const float (&f)[V]) {
+  if constexpr (V == 1) {
+    *p = from_f32<T>(f[0]);
+  } else {
+    unsigned int w[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      if constexpr (V == 4) {
+        w[i] = __float_as_uint(f[i]);
+      } else {
+        const __nv_bfloat162 h = __floats2bfloat162_rn(f[2 * i], f[2 * i + 1]);
+        w[i] = *reinterpret_cast<const unsigned int*>(&h);
+      }
+    }
+    *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
+  }
+}
+
+// z = mu + e^ls eps of V elements at offset i; returns their logq terms.
+template <typename T, int V>
+__device__ __forceinline__ float fwd_elems(const T* __restrict__ mu, const T* __restrict__ ls,
+                                           const T* __restrict__ eps, T* __restrict__ z,
+                                           long long i) {
+  float m[V], l[V], e[V], out[V];
+  load_f32<T, V>(mu + i, m);
+  load_f32<T, V>(ls + i, l);
+  load_f32<T, V>(eps + i, e);
+  float lq = 0.0f;
+#pragma unroll
+  for (int k = 0; k < V; ++k) {
+    out[k] = __fadd_rn(m[k], __fmul_rn(expf(l[k]), e[k]));
+    lq += -0.5f * e[k] * e[k] - l[k] - kHalfLog2Pi;
+  }
+  store_f32<T, V>(z + i, out);
+  return lq;
+}
+
+// scratch[0]: the ticket counter (0 between calls); scratch[1 ..]: the
+// blocks' partials (f32), one a block.
+template <typename T, int V>
 __global__ void __launch_bounds__(kThreads)
 reparam_fwd_kernel(const T* __restrict__ mu, const T* __restrict__ ls,
                    const T* __restrict__ eps, T* __restrict__ z,
-                   float* __restrict__ partials, long long n, int block) {
-  const long long start = static_cast<long long>(blockIdx.x) * block;
-  const long long stop = min(start + block, n);
+                   unsigned int* scratch, float* __restrict__ logq, long long n) {
+  float* const partials = reinterpret_cast<float*>(scratch + 1);
+  const long long nvec = n / V;
+  const long long tid = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+  const long long stride = static_cast<long long>(gridDim.x) * kThreads;
   float lq = 0.0f;
-  for (long long i = start + threadIdx.x; i < stop; i += kThreads) {
-    const float m = to_f32(mu[i]), l = to_f32(ls[i]), e = to_f32(eps[i]);
-    z[i] = from_f32<T>(__fadd_rn(m, __fmul_rn(expf(l), e)));
-    lq += -0.5f * e * e - l - kHalfLog2Pi;
-  }
+  for (long long v = tid; v < nvec; v += stride) lq += fwd_elems<T, V>(mu, ls, eps, z, v * V);
+  if (nvec * V + tid < n) lq += fwd_elems<T, 1>(mu, ls, eps, z, nvec * V + tid);  // the tail
   lq = block_sum<kThreads>(lq);
-  if (threadIdx.x == 0) partials[blockIdx.x] = lq;
-}
 
-// One block: out[0] = sum of the n partials, in a fixed order.
-__global__ void __launch_bounds__(kSumThreads)
-sum_partials_kernel(const float* __restrict__ partials, float* __restrict__ out,
-                    int n) {
-  float v = 0.0f;
-  for (int i = threadIdx.x; i < n; i += kSumThreads) v += partials[i];
-  v = block_sum<kSumThreads>(v);
-  if (threadIdx.x == 0) out[0] = v;
+  __shared__ float own;
+  __shared__ bool last;
+  if (threadIdx.x == 0) {
+    own = lq;
+    partials[blockIdx.x] = lq;
+    // The ticket, taken with release (this block's partial is visible
+    // before it) and acquire (every partial whose ticket came before is
+    // visible after it; the barrier below passes that on to the block).
+    unsigned int ticket;
+    asm volatile("atom.add.acq_rel.gpu.global.u32 %0, [%1], 1;"
+                 : "=r"(ticket) : "l"(scratch) : "memory");
+    last = ticket == gridDim.x - 1;
+  }
+  __syncthreads();
+  if (!last) return;
+  // Thread t sums partials t, t + kThreads, ... in turn; its loads are
+  // issued together (at most kMaxParts a thread).
+  float part[kMaxParts];
+#pragma unroll
+  for (int k = 0; k < kMaxParts; ++k) {
+    const int b = threadIdx.x + k * kThreads;
+    part[k] = b >= static_cast<int>(gridDim.x)        ? 0.0f
+              : b == static_cast<int>(blockIdx.x) ? own
+                                                  : __ldcg(partials + b);
+  }
+  float sum = 0.0f;
+#pragma unroll
+  for (int k = 0; k < kMaxParts; ++k) sum += part[k];
+  sum = block_sum<kThreads>(sum);
+  if (threadIdx.x == 0) {
+    *logq = sum;
+    *scratch = 0u;  // the ticket counter, ready for the next call
+  }
 }
 
 template <typename T>
@@ -119,18 +216,12 @@ reparam_bwd_kernel(const T* __restrict__ ls, const T* __restrict__ eps,
   }
 }
 
-template <typename T>
-int launch_fwd(const void* mu, const void* ls, const void* eps, void* z,
-               float* partials, float* logq, long long n, int block,
-               cudaStream_t s) {
-  const long long blocks = (n + block - 1) / block;
-  reparam_fwd_kernel<T><<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
-      static_cast<const T*>(mu), static_cast<const T*>(ls),
-      static_cast<const T*>(eps), static_cast<T*>(z), partials, n, block);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  sum_partials_kernel<<<1, kSumThreads, 0, s>>>(partials, logq,
-                                                static_cast<int>(blocks));
+template <typename T, int V>
+int launch_fwd(const void* mu, const void* ls, const void* eps, void* z, unsigned int* scratch,
+               float* logq, long long n, int grid, cudaStream_t s) {
+  reparam_fwd_kernel<T, V><<<grid, kThreads, 0, s>>>(
+      static_cast<const T*>(mu), static_cast<const T*>(ls), static_cast<const T*>(eps),
+      static_cast<T*>(z), scratch, logq, n);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -150,14 +241,27 @@ int launch_bwd(const void* ls, const void* eps, const void* dz, const float* dlq
 
 extern "C" {
 
-// mu, ls, eps, z: (n,) of one type (bf16 when is_bf16, else f32);
-// partials: ceil(n / block) f32; logq: one f32. n >= 1, block >= 1.
+// mu, ls, eps, z: (n,) of one type (bf16 when is_bf16, else f32); logq: one
+// f32. scratch: 1 + capacity 32-bit words, word 0 zero (the ticket
+// counter; the kernel leaves it zero). vec: 16 / element size (every
+// pointer 16-byte aligned) or 1; grid: 1 .. capacity blocks. n >= 1.
 int repro_reparam_fwd(const void* mu, const void* ls, const void* eps, void* z,
-                      float* partials, float* logq, long long n, int block,
-                      int is_bf16, void* stream) {
+                      unsigned int* scratch, int capacity, float* logq, long long n, int vec,
+                      int grid, int is_bf16, void* stream) {
+  const int wide = is_bf16 ? 8 : 4;
+  const bool aligned = (reinterpret_cast<uintptr_t>(mu) | reinterpret_cast<uintptr_t>(ls) |
+                        reinterpret_cast<uintptr_t>(eps) | reinterpret_cast<uintptr_t>(z)) %
+                           16 == 0;
+  if (n < 1 || grid < 1 || grid > capacity || grid > kMaxParts * kThreads ||
+      (vec != 1 && vec != wide) ||
+      (vec == wide && !aligned))
+    return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? launch_fwd<__nv_bfloat16>(mu, ls, eps, z, partials, logq, n, block, s)
-                 : launch_fwd<float>(mu, ls, eps, z, partials, logq, n, block, s);
+  if (is_bf16)
+    return vec == 1 ? launch_fwd<__nv_bfloat16, 1>(mu, ls, eps, z, scratch, logq, n, grid, s)
+                    : launch_fwd<__nv_bfloat16, 8>(mu, ls, eps, z, scratch, logq, n, grid, s);
+  return vec == 1 ? launch_fwd<float, 1>(mu, ls, eps, z, scratch, logq, n, grid, s)
+                  : launch_fwd<float, 4>(mu, ls, eps, z, scratch, logq, n, grid, s);
 }
 
 // ls, eps, dz, dmu, dls, deps: (n,) of one type; dlq: one f32 on the device.

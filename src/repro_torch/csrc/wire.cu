@@ -43,7 +43,8 @@
 // Inactive rows skip the norm and ship the fallback directly.
 //
 // ---------------------------------------------------------------------------
-// Kernel 2: combine_kernel  (replaces src/repro/kernels/wire.py:208
+// Kernel 2: combine_mean_kernel, combine_trim_kernel and
+//           combine_trim_staged_kernel  (replace src/repro/kernels/wire.py:208
 //           _combine_kernel / :242 fused_combine)
 //
 // Column-wise over the silo axis of the gathered (J, P) matrix: weighted mean
@@ -51,23 +52,56 @@
 // w > 0 (k = min(floor(tf*n), floor((n-1)/2)) dropped at each end, zeros when
 // no row is active), with an optional in-kernel int8 dequantize (q * scale_j).
 //
-// What bounds it: bytes (J reads per column, one write). Design: one thread
-// per column looping over j, so loads of a row are coalesced across the warp.
-// The Pallas kernel sorts each column; here the trim is a rank count: for
-// each active j, rank = #{active i : x_i < x_j or (x_i == x_j and i < j)},
-// kept if k <= rank < n-k. Ties only swap places, so this equals
-// sort-then-slice. It is O(J^2) per column; J <= 1024 is enforced by the
-// wrapper. The Pallas grid's sequential order (wire.py:279) has no Hopper
-// counterpart, and none is needed: columns are independent.
+// What bounds it: bytes (each element read once, the (P,) row written once).
+// At the path's sizes (at most 4 MB, one wave) the time is mostly latency,
+// and with the inputs in L2 partly instructions issued: each thread makes
+// one round trip of loads, and no load is predicated off.
+// Design (the plan is kernels/wire.py combine_plan):
+//   * The direct routes, the mean for any J and the trim for J <= 16: a
+//     column a thread (a warp reads 128 contiguous bytes of f32 a row), the
+//     kernel instantiated for J rows (the mean in passes of 16 past that),
+//     so all of a thread's loads (its column's J values, the weights and
+//     int8 scales as broadcast loads) are issued before any is used, and
+//     none is predicated off. The mean sums Σw and w_j x_j in row order,
+//     the reference's order. The trim sets inactive rows to +inf, sorts the
+//     J values with an odd-even transposition network (sort_rows) and sums ranks
+//     k .. n-k-1 in ascending order; equal values are interchangeable in
+//     that sum, so it keeps the multiset that the Pallas kernel's sort
+//     keeps, and that a rank count with ties broken by row index keeps. n
+//     and k come from the J weights each thread holds: no barrier.
+//   * The staged route, the trim for 16 < J <= 1024: a block takes a tile
+//     of tile_cols columns (a multiple of 16, at most 256: a column a
+//     thread) for all J rows in shared memory. Each row's segment is copied
+//     in 16-byte cp.async pieces aligned on that row's own address, with
+//     scalar head and tail elements around them; in shared memory a row
+//     starts at its address's offset within 16 bytes, so both ends of every
+//     piece are aligned, for every P and every offset of x, f32 or int8.
+//     Warp 0 finds the active rows (a ballot), n and k once a block while
+//     the copies are in flight. Then the rank count over the staged column:
+//     rank = #{active i : x_i < x_j or (x_i == x_j and i < j)}, kept if
+//     k <= rank < n-k, summed in row order. O(J^2) a column; the wrapper
+//     refuses J > 1024.
+//   * Tried on the card and dropped (PERF.md, kernel table): the mean's
+//     tile staged in shared memory, and 4 columns a thread with 16-byte
+//     loads on each row's alignment, each slower than a column a thread at
+//     every path shape (fewer warps hide less of each thread's longer
+//     chain); 16 rows unrolled and predicated for every J (the dead
+//     instructions still issue).
+//   * The grids are at most the card's resident blocks (SMs times the
+//     blocks an SM holds); blocks stride over the columns. Each column is
+//     one thread's sum in a fixed order: runs repeat bit for bit, no
+//     atomics. The Pallas grid's sequential order (wire.py:279) has no
+//     Hopper counterpart, and none is needed: columns are independent.
 // ---------------------------------------------------------------------------
 
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 namespace {
 
 constexpr int kUploadThreads = 256;
-constexpr int kCombineThreads = 256;
+constexpr int kCombineThreads = 256;  // a block of the staged trim: a column of a tile a thread
 
 __device__ __forceinline__ float warp_sum(float v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
@@ -265,58 +299,339 @@ int launch_upload(const UploadArgs& a, int J, cudaStream_t s) {
   return static_cast<int>(cudaGetLastError());
 }
 
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+struct CombineArgs {
+  const void* x;        // (J, P) f32, or int8 with scales
+  const float* scales;  // (J,) or null
+  const float* w;       // (J,)
+  float* out;           // (P,)
+  int J, P, tile_cols;
+  float trim_frac;
+};
+
+// Row j of x (J, P) from column c, and how many bytes that address lies
+// past a 16-byte boundary: each row's own alignment, which P and x's
+// offset set (P = 100,354 puts every other f32 row 8 bytes off).
 template <typename T>
-__device__ __forceinline__ float load_row(const T* __restrict__ x,
-                                          const float* __restrict__ scales,
-                                          int j, long long c, int P) {
-  const float v = static_cast<float>(x[static_cast<long long>(j) * P + c]);
-  return scales ? __fmul_rn(v, scales[j]) : v;
+__device__ __forceinline__ const T* row_at(const T* x, int j, int P, int c) {
+  return x + static_cast<long long>(j) * P + c;
 }
 
 template <typename T>
-__global__ void __launch_bounds__(kCombineThreads)
-combine_kernel(const T* __restrict__ x, const float* __restrict__ scales,
-               const float* __restrict__ w, float* __restrict__ out, int J,
-               int P, int trimmed, float trim_frac) {
-  const long long c = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (c >= P) return;
+__device__ __forceinline__ int misalign(const T* x, int j, int P, int c) {
+  return static_cast<int>(reinterpret_cast<uintptr_t>(row_at(x, j, P, c)) % 16);
+}
 
-  if (!trimmed) {
-    float total = 0.f, acc = 0.f;
-    for (int j = 0; j < J; ++j) {
-      total = __fadd_rn(total, w[j]);
-      acc = __fadd_rn(acc, __fmul_rn(w[j], load_row(x, scales, j, c, P)));
-    }
-    out[c] = acc / (total > 0.f ? total : 1.f);
-    return;
-  }
+// Row r's int8 scale: every route reads the scales here (a value an int8
+// code is multiplied by, __fmul_rn, as the reference's q * scale).
+__device__ __forceinline__ float row_scale(const float* scales, int r) {
+  return scales[r];
+}
 
-  int n = 0;
-  for (int j = 0; j < J; ++j) n += w[j] > 0.f;
-  if (n == 0) {
-    out[c] = 0.f;
-    return;
-  }
+__device__ __forceinline__ bool kept(int rank, int n, int k) { return rank >= k && rank < n - k; }
+
+// k = min(floor(tf n), floor((n - 1) / 2)) for n >= 1 active rows.
+__device__ __forceinline__ int trim_count(float trim_frac, int n) {
   const float nf = static_cast<float>(n);
-  const int k = static_cast<int>(
-      fminf(floorf(__fmul_rn(trim_frac, nf)), floorf((nf - 1.f) / 2.f)));
-  float sum = 0.f;
-  int kept = 0;
-  for (int j = 0; j < J; ++j) {
-    if (!(w[j] > 0.f)) continue;
-    const float xj = load_row(x, scales, j, c, P);
-    int rank = 0;
-    for (int i = 0; i < J; ++i) {
-      if (!(w[i] > 0.f)) continue;
-      const float xi = load_row(x, scales, i, c, P);
-      rank += (xi < xj) || (xi == xj && i < j);
-    }
-    if (rank >= k && rank < n - k) {
-      sum = __fadd_rn(sum, xj);
-      ++kept;
+  return n == 0 ? 0 : static_cast<int>(fminf(floorf(__fmul_rn(trim_frac, nf)),
+                                              floorf((nf - 1.f) / 2.f)));
+}
+
+// ---- the direct routes: a column a thread, its J values in registers -----
+
+constexpr int kDirectThreads = 256;  // a block of the direct routes: a column a thread
+constexpr int kDirectRows = 16;      // the largest J of the direct routes (mean: a pass)
+constexpr int kDirectBlocks = 4;     // blocks an SM the direct kernels' registers allow (<= 64 a thread)
+
+// Odd-even transposition sort of v[0, J) ascending: J rounds, round r
+// ordering the pairs (i, i + 1) with i of r's parity; J(J-1)/2
+// comparators, every index known to the compiler (the loops unroll fully,
+// so v stays in registers).
+template <int J>
+__device__ __forceinline__ void sort_rows(float (&v)[J]) {
+#pragma unroll
+  for (int r = 0; r < J; ++r) {
+#pragma unroll
+    for (int i = r & 1; i + 1 < J; i += 2) {
+      const float a = v[i], b = v[i + 1];
+      v[i] = fminf(a, b);
+      v[i + 1] = fmaxf(a, b);
     }
   }
-  out[c] = sum / static_cast<float>(kept > 1 ? kept : 1);
+}
+
+// The weighted mean: thread t of the grid takes column t (then strides by
+// the grid), ROWS rows a pass (ROWS = J up to kDirectRows, so no load is
+// predicated off), all of a pass's loads (x, w and the int8 scales; a
+// row's weight and scale are broadcast loads for the warp) issued before
+// any is used. Σw and w_j x_j are summed in row order, the reference's.
+template <typename T, int ROWS>
+__global__ void __launch_bounds__(kDirectThreads, kDirectBlocks)
+combine_mean_kernel(const CombineArgs a) {
+  constexpr bool kDequant = sizeof(T) == 1;
+  const T* x = static_cast<const T*>(a.x);
+  for (int c = blockIdx.x * kDirectThreads + threadIdx.x; c < a.P;
+       c += gridDim.x * kDirectThreads) {
+    float acc = 0.f, total = 0.f;
+    for (int j0 = 0; j0 < a.J; j0 += ROWS) {
+      float v[ROWS], wv[ROWS], sv[ROWS];
+#pragma unroll
+      for (int u = 0; u < ROWS; ++u) {
+        if (j0 + u < a.J) {
+          wv[u] = a.w[j0 + u];
+          if (kDequant) sv[u] = row_scale(a.scales, j0 + u);
+          v[u] = static_cast<float>(*row_at(x, j0 + u, a.P, c));
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < ROWS; ++u) {
+        if (j0 + u < a.J) {
+          total = __fadd_rn(total, wv[u]);
+          const float xv = kDequant ? __fmul_rn(v[u], sv[u]) : v[u];
+          acc = __fadd_rn(acc, __fmul_rn(wv[u], xv));
+        }
+      }
+    }
+    a.out[c] = __fdiv_rn(acc, total > 0.f ? total : 1.f);
+  }
+}
+
+// The trimmed mean for J <= kDirectRows: a thread loads its column's J
+// values (and the weights and scales, broadcast) before it uses any, sets
+// the inactive rows' to +inf, sorts them (sort_rows) and sums ranks
+// k .. n-k-1 in ascending order. Equal values are interchangeable in that
+// sum, so it keeps the multiset that the Pallas kernel's sort keeps, and
+// that a rank count with ties broken by row index keeps. n and k come from
+// the weights each thread holds (J compares): no barrier.
+template <typename T, int J>
+__global__ void __launch_bounds__(kDirectThreads, kDirectBlocks)
+combine_trim_kernel(const CombineArgs a) {
+  constexpr bool kDequant = sizeof(T) == 1;
+  const T* x = static_cast<const T*>(a.x);
+  for (int c = blockIdx.x * kDirectThreads + threadIdx.x; c < a.P;
+       c += gridDim.x * kDirectThreads) {
+    float v[J], wv[J], sv[J];
+#pragma unroll
+    for (int r = 0; r < J; ++r) {
+      wv[r] = a.w[r];
+      if (kDequant) sv[r] = row_scale(a.scales, r);
+      v[r] = static_cast<float>(*row_at(x, r, a.P, c));
+    }
+    int n = 0;
+#pragma unroll
+    for (int r = 0; r < J; ++r) {
+      const bool on = wv[r] > 0.f;
+      n += on;
+      v[r] = !on ? INFINITY : kDequant ? __fmul_rn(v[r], sv[r]) : v[r];
+    }
+    const int k = trim_count(a.trim_frac, n);
+    sort_rows(v);
+    float sum = 0.f;
+#pragma unroll
+    for (int rank = 0; rank < J; ++rank)
+      if (kept(rank, n, k)) sum = __fadd_rn(sum, v[rank]);
+    a.out[c] = n == 0 ? 0.f : __fdiv_rn(sum, static_cast<float>(n - 2 * k));
+  }
+}
+
+// The mean and trim kernels whose ROWS or J is `rows` (1 .. R).
+template <typename T, int R>
+const void* mean_kernel_for(int rows) {
+  if constexpr (R > 1) {
+    if (rows < R) return mean_kernel_for<T, R - 1>(rows);
+  }
+  return reinterpret_cast<const void*>(combine_mean_kernel<T, R>);
+}
+
+template <typename T, int R>
+const void* trim_kernel_for(int rows) {
+  if constexpr (R > 1) {
+    if (rows < R) return trim_kernel_for<T, R - 1>(rows);
+  }
+  return reinterpret_cast<const void*>(combine_trim_kernel<T, R>);
+}
+
+// ---- the trimmed mean for J > kDirectRows: the tile staged in shared memory
+
+// The columns [c0, c0 + width) of every row of x (J, P).
+template <typename T>
+struct Tile {
+  const T* x;
+  int P, c0, width;
+
+  __device__ const T* seg(int j) const { return row_at(x, j, P, c0); }
+  // Row j's segment starts `lead` elements past a 16-byte boundary; its row
+  // in shared memory starts there too.
+  __device__ int lead(int j) const { return misalign(x, j, P, c0) / static_cast<int>(sizeof(T)); }
+};
+
+// Copy every row of the tile into s_rows (row j at j * stride elements,
+// element i at lead + i): the 16-byte pieces by cp.async, the head before
+// the row's first boundary and the tail after its last whole piece by
+// plain loads, kScalarBatch a thread issued together before any is stored.
+// Each element is copied once.
+constexpr int kScalarBatch = 4;
+
+template <typename T>
+__device__ void stage_tile(const Tile<T>& t, T* s_rows, int stride, int J) {
+  constexpr int V = 16 / sizeof(T);  // elements a piece
+  const int per_row = t.width / V + 1;
+  for (int p = threadIdx.x; p < J * per_row; p += kCombineThreads) {
+    const int r = p / per_row, i = p % per_row;
+    const int lead = t.lead(r);
+    const int head = min((V - lead) % V, t.width);
+    if (i < (t.width - head) / V)
+      cp_async16(s_rows + r * stride + lead + head + i * V, t.seg(r) + head + i * V);
+  }
+  const int scalars = J * 2 * V;
+  for (int p0 = threadIdx.x; p0 < scalars; p0 += kScalarBatch * kCombineThreads) {
+    T v[kScalarBatch];
+    int dst[kScalarBatch];
+#pragma unroll
+    for (int u = 0; u < kScalarBatch; ++u) {
+      const int p = p0 + u * kCombineThreads;
+      const int r = p / (2 * V), e = p % (2 * V);
+      const int lead = t.lead(r);
+      const int head = min((V - lead) % V, t.width);
+      const int body = (t.width - head) / V * V;
+      const int i = e < V ? e : head + body + e - V;
+      dst[u] = -1;
+      if (p < scalars && (e < V ? e < head : i < t.width)) {
+        v[u] = t.seg(r)[i];
+        dst[u] = r * stride + lead + i;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kScalarBatch; ++u)
+      if (dst[u] >= 0) s_rows[dst[u]] = v[u];
+  }
+}
+
+// Shared memory of the staged trim: 16 bytes of n and k, the J scales, the
+// active rows, 16-byte aligned; then the J staged rows of tile_cols +
+// 16 / elt elements.
+__host__ __device__ __forceinline__ long long trim_tile_offset(int J) {
+  return (16 + 8LL * J + 15) / 16 * 16;
+}
+
+__host__ __device__ __forceinline__ long long trim_smem(int J, int tile_cols, int elt) {
+  return trim_tile_offset(J) + static_cast<long long>(J) * (tile_cols + 16 / elt) * elt;
+}
+
+// Warp 0: the active rows in row order (a ballot a 32 rows), n and k; w0 is
+// the lane's weight of rows 0..31, loaded before the tile's copies were
+// issued.
+__device__ __forceinline__ void trim_scalars(const CombineArgs& a, float w0, int* s_nk,
+                                             int* s_act) {
+  const int lane = threadIdx.x;
+  int n = 0;
+  for (int j0 = 0; j0 < a.J; j0 += 32) {
+    const float wj = j0 == 0 ? w0 : j0 + lane < a.J ? a.w[j0 + lane] : 0.f;
+    const unsigned on = __ballot_sync(0xffffffffu, wj > 0.f);
+    if (wj > 0.f) s_act[n + __popc(on & ((1u << lane) - 1u))] = j0 + lane;
+    n += __popc(on);
+  }
+  if (lane == 0) {
+    s_nk[0] = n;
+    s_nk[1] = trim_count(a.trim_frac, n);
+  }
+}
+
+// Element i of staged row r in f32 (an int8 code times its row's scale).
+template <bool kDequant, typename T>
+__device__ __forceinline__ float staged(const T* s_rows, int stride, int lead, int r, int i,
+                                       const float* s_scale) {
+  const float v = static_cast<float>(s_rows[r * stride + lead + i]);
+  return kDequant ? __fmul_rn(v, s_scale[r]) : v;
+}
+
+// A block stages its tile of every row, then thread i ranks column i's
+// active values: rank = #{active q : x_q < x_p or (x_q == x_p and q < p)},
+// the kept ones summed in row order. Every load is issued before anything
+// waits on one: warp 0's weights and this thread's scale, then the tile.
+template <typename T>
+__global__ void __launch_bounds__(kCombineThreads)
+combine_trim_staged_kernel(const CombineArgs a) {
+  constexpr bool kDequant = sizeof(T) == 1;
+  extern __shared__ __align__(16) unsigned char smem[];
+  int* const s_nk = reinterpret_cast<int*>(smem);
+  float* const s_scale = reinterpret_cast<float*>(smem + 16);
+  int* const s_act = reinterpret_cast<int*>(s_scale + a.J);
+  T* const s_rows = reinterpret_cast<T*>(smem + trim_tile_offset(a.J));
+  const int stride = a.tile_cols + 16 / static_cast<int>(sizeof(T));
+  const int tiles = (a.P + a.tile_cols - 1) / a.tile_cols;
+  const int i = threadIdx.x;  // this thread's column of the tile
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const bool first = tile == static_cast<int>(blockIdx.x);
+    if (!first) __syncthreads();  // the previous tile is read
+    const int c0 = tile * a.tile_cols;
+    const Tile<T> t{static_cast<const T*>(a.x), a.P, c0, min(a.tile_cols, a.P - c0)};
+    const float w0 = first && i < 32 && i < a.J ? a.w[i] : 0.f;
+    const float si = first && kDequant && i < a.J ? row_scale(a.scales, i) : 0.f;
+    stage_tile(t, s_rows, stride, a.J);
+    if (first) {
+      if (i < a.J) s_scale[i] = si;
+      for (int r = i + kCombineThreads; kDequant && r < a.J; r += kCombineThreads)
+        s_scale[r] = row_scale(a.scales, r);
+      if (i < 32) trim_scalars(a, w0, s_nk, s_act);
+    }
+    cp_async_wait_all();
+    __syncthreads();  // the tile has landed
+    if (i < t.width) {
+      const int n = s_nk[0], k = s_nk[1];
+      float sum = 0.f;
+      for (int p = 0; p < n; ++p) {
+        const int rp = s_act[p];
+        const float xp = staged<kDequant>(s_rows, stride, t.lead(rp), rp, i, s_scale);
+        int rank = 0;
+        for (int q = 0; q < n; ++q) {
+          const int rq = s_act[q];
+          const float xq = staged<kDequant>(s_rows, stride, t.lead(rq), rq, i, s_scale);
+          rank += (xq < xp) || (xq == xp && q < p);
+        }
+        if (kept(rank, n, k)) sum = __fadd_rn(sum, xp);
+      }
+      a.out[c0 + i] = n == 0 ? 0.f : __fdiv_rn(sum, static_cast<float>(n - 2 * k));
+    }
+  }
+}
+
+constexpr int kMaxTrimRows = 1024;
+constexpr long long kSmemLimit = 232448;  // a block of the H100, bytes
+
+template <typename T>
+int launch_combine(const CombineArgs& a, int trimmed, int grid, cudaStream_t s) {
+  if (a.J < 1 || a.P < 1 || grid < 1 || (trimmed && a.J > kMaxTrimRows))
+    return static_cast<int>(cudaErrorInvalidValue);
+  void* args[] = {const_cast<CombineArgs*>(&a)};
+  if (!trimmed || a.J <= kDirectRows) {
+    if (a.tile_cols != kDirectThreads) return static_cast<int>(cudaErrorInvalidValue);
+    const void* k = trimmed ? trim_kernel_for<T, kDirectRows>(a.J)
+                            : mean_kernel_for<T, kDirectRows>(min(a.J, kDirectRows));
+    const cudaError_t launch = cudaLaunchKernel(k, dim3(grid), dim3(kDirectThreads), args, 0, s);
+    return static_cast<int>(launch != cudaSuccess ? launch : cudaGetLastError());
+  }
+  const long long bytes = trim_smem(a.J, a.tile_cols, sizeof(T));
+  if (a.tile_cols < 16 || a.tile_cols > kCombineThreads || a.tile_cols % 16 ||
+      bytes > kSmemLimit)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const void* k = reinterpret_cast<const void*>(combine_trim_staged_kernel<T>);
+  if (bytes > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        k, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const cudaError_t launch = cudaLaunchKernel(k, dim3(grid), dim3(kCombineThreads), args,
+                                              static_cast<size_t>(bytes), s);
+  return static_cast<int>(launch != cudaSuccess ? launch : cudaGetLastError());
 }
 
 }  // namespace
@@ -344,25 +659,29 @@ int repro_fused_upload(const float* x, const float* mask, const float* noise,
                   : vec == 2 ? launch_upload<2>(a, J, s) : launch_upload<1>(a, J, s);
 }
 
-// x: (J, P) f32; w: (J,) f32; out: (P,) f32.
-int repro_fused_combine_f32(const float* x, const float* w, float* out, int J,
-                            int P, int trimmed, float trim_frac, void* stream) {
-  const int blocks = (P + kCombineThreads - 1) / kCombineThreads;
-  combine_kernel<float><<<blocks, kCombineThreads, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-      x, nullptr, w, out, J, P, trimmed, trim_frac);
-  return static_cast<int>(cudaGetLastError());
+// x: (J, P) f32; w: (J,) f32; out: (P,) f32, 16-byte aligned. The plan
+// (kernels/wire.py combine_plan): the mean takes tile_cols = 512 columns a
+// block step; the trim tiles of tile_cols columns (a multiple of 16,
+// 16..256), J <= 1024. grid blocks stride over the tiles.
+int repro_fused_combine_f32(const float* x, const float* w, float* out, int J, int P,
+                            int trimmed, float trim_frac, int tile_cols, int grid,
+                            void* stream) {
+  const CombineArgs a{x, nullptr, w, out, J, P, tile_cols, trim_frac};
+  return launch_combine<float>(a, trimmed, grid, static_cast<cudaStream_t>(stream));
 }
 
 // q: (J, P) int8 with per-row scales (J,) f32, dequantized in-kernel.
-int repro_fused_combine_i8(const int8_t* q, const float* scales, const float* w,
-                           float* out, int J, int P, int trimmed,
-                           float trim_frac, void* stream) {
-  const int blocks = (P + kCombineThreads - 1) / kCombineThreads;
-  combine_kernel<int8_t><<<blocks, kCombineThreads, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
-      q, scales, w, out, J, P, trimmed, trim_frac);
-  return static_cast<int>(cudaGetLastError());
+int repro_fused_combine_i8(const int8_t* q, const float* scales, const float* w, float* out,
+                           int J, int P, int trimmed, float trim_frac, int tile_cols, int grid,
+                           void* stream) {
+  const CombineArgs a{q, scales, w, out, J, P, tile_cols, trim_frac};
+  return launch_combine<int8_t>(a, trimmed, grid, static_cast<cudaStream_t>(stream));
+}
+
+// The trimmed combine's shared memory for J rows and a tile, in bytes
+// (elt: 4 or 1).
+long long repro_trim_smem_bytes(int J, int tile_cols, int elt) {
+  return trim_smem(J, tile_cols, elt);
 }
 
 }  // extern "C"

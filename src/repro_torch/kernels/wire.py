@@ -33,7 +33,7 @@ reference draws threefry noise in-kernel from per-row keys).
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -42,7 +42,13 @@ from repro_torch.kernels import ref as _ref
 LAUNCHES: Dict[str, int] = {"fused_upload": 0, "fused_combine": 0, "newton_schulz_step": 0,
                             "sqrtm_newton_schulz": 0}
 
-MAX_TRIM_ROWS = 1024  # the trimmed combine is O(J^2) per column
+MAX_TRIM_ROWS = 1024  # the staged trim's rank count is O(J^2) a column
+COMBINE_THREADS = 256  # threads a combine block: a column each
+DIRECT_ROWS = 16  # J up to this: the trim in registers (the mean takes passes of it)
+COMBINE_TILES_PER_SM = 3  # the staged trim aims at this many tiles an SM
+COMBINE_SMEM_BUDGET = 96 * 1024  # a staged block's shared memory: two fit an SM
+SM_SMEM = 233_472  # shared memory of one H100 SM (228 KB), bytes
+SM_THREADS = 2048  # resident threads of one H100 SM
 MAX_UPLOAD_ROWS = 65535  # the upload's rows ride grid y
 UPLOAD_THREADS = 256  # threads a block of the upload kernels
 UPLOAD_BLOCKS_PER_SM = 4  # the plan aims at this many blocks an SM
@@ -52,10 +58,10 @@ _c_void_p, _c_int, _c_float = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "repro_fused_upload": [_c_void_p] * 9 + [_c_int] * 6 + [_c_float, _c_float, _c_int,
                                                              _c_void_p],
-    "repro_fused_combine_f32": [_c_void_p] * 3 + [_c_int, _c_int, _c_int,
-                                                  _c_float, _c_void_p],
-    "repro_fused_combine_i8": [_c_void_p] * 4 + [_c_int, _c_int, _c_int,
-                                                 _c_float, _c_void_p],
+    "repro_fused_combine_f32": [_c_void_p] * 3 + [_c_int] * 3 + [_c_float] + [_c_int] * 2
+                               + [_c_void_p],
+    "repro_fused_combine_i8": [_c_void_p] * 4 + [_c_int] * 3 + [_c_float] + [_c_int] * 2
+                              + [_c_void_p],
 }
 _NS_SIGNATURES = {"repro_newton_schulz_step": [_c_void_p] * 5 + [_c_int, _c_int, _c_void_p],
                   "repro_sqrtm_newton_schulz": [_c_void_p] * 2 + [_c_int] * 3 + [_c_void_p]}
@@ -152,6 +158,47 @@ def _upload_vec(P: int, tensors) -> int:
     return 1
 
 
+class CombinePlan(NamedTuple):
+    tile_cols: int  # columns a block takes a step: a column a thread
+    tiles: int  # ceil(P / tile_cols)
+    grid: int  # blocks, striding over the tiles
+    smem_bytes: int  # the staged trim's shared memory a block; 0 for the direct routes
+
+
+def trim_smem_bytes(J: int, tile_cols: int, elt: int) -> int:
+    """The staged trim's shared memory (``trim_smem`` in the source): n and
+    k in 16 bytes, the J scales and active-row indices, 16-byte aligned;
+    then J staged rows of ``tile_cols + 16 / elt`` elements (a row sits at
+    its address's offset within 16 bytes)."""
+    return -(-(16 + 8 * J) // 16) * 16 + J * (tile_cols + 16 // elt) * elt
+
+
+def combine_plan(J: int, P: int, elt: int, trimmed: bool, sms: int = H100_SMS) -> CombinePlan:
+    """The combine kernels' launch plan for a (J, P) matrix of ``elt``-byte
+    elements (4: f32, 1: int8).
+
+    The direct routes (the mean, and the trim for J up to
+    ``DIRECT_ROWS``): ``COMBINE_THREADS``-thread blocks, a column a thread,
+    no shared memory. The staged trim (larger J): tiles of a multiple of 16
+    columns, at most one a thread, aiming at ``COMBINE_TILES_PER_SM`` tiles
+    on each of the card's ``sms`` SMs and narrowed until the block's shared
+    memory fits ``COMBINE_SMEM_BUDGET``. Either grid is the tiles, capped at
+    the blocks the SMs hold at once (by threads and shared memory).
+    """
+    if not trimmed or J <= DIRECT_ROWS:
+        tiles = -(-P // COMBINE_THREADS)
+        return CombinePlan(COMBINE_THREADS, tiles,
+                           max(1, min(tiles, sms * (SM_THREADS // COMBINE_THREADS))), 0)
+    aim = -(-P // (sms * COMBINE_TILES_PER_SM))
+    tile_cols = min(COMBINE_THREADS, max(16, -(-aim // 16) * 16))
+    while tile_cols > 16 and trim_smem_bytes(J, tile_cols, elt) > COMBINE_SMEM_BUDGET:
+        tile_cols -= 16
+    smem = trim_smem_bytes(J, tile_cols, elt)
+    tiles = -(-P // tile_cols)
+    per_sm = min(SM_THREADS // COMBINE_THREADS, SM_SMEM // (smem + 1024))
+    return CombinePlan(tile_cols, tiles, max(1, min(tiles, sms * per_sm)), smem)
+
+
 def fused_upload(
     x: torch.Tensor,  # (J, P) stacked wire matrix, one row per silo
     *,
@@ -219,7 +266,10 @@ def fused_combine(
     scales: Optional[torch.Tensor] = None,  # (J,) int8 scales -> fused dequant
     trim_frac: Optional[float] = None,
 ) -> torch.Tensor:
-    """Fused masked/weighted (trimmed-)mean over the silo axis -> (P,) f32."""
+    """Fused masked/weighted (trimmed-)mean over the silo axis -> (P,) f32.
+
+    On the card one launch of the combine kernel, planned by
+    :func:`combine_plan`; any P and any element offset of ``x``."""
     dequant = scales is not None
     if dequant and x.dtype != torch.int8:
         raise ValueError(f"scales given but payload dtype is {x.dtype}")
@@ -243,13 +293,14 @@ def fused_combine(
     if J and P:
         stream = torch.cuda.current_stream(dev).cuda_stream
         tf = float(trim_frac) if trimmed else 0.0
+        plan = combine_plan(J, P, x.element_size(), trimmed,
+                            torch.cuda.get_device_properties(dev).multi_processor_count)
+        tail = (J, P, int(trimmed), tf, plan.tile_cols, plan.grid, stream)
         if dequant:
-            err = _lib().repro_fused_combine_i8(
-                _ptr(x), _ptr(scales), _ptr(weights), _ptr(out), J, P,
-                int(trimmed), tf, stream)
+            err = _lib().repro_fused_combine_i8(_ptr(x), _ptr(scales), _ptr(weights), _ptr(out),
+                                                *tail)
         else:
-            err = _lib().repro_fused_combine_f32(
-                _ptr(x), _ptr(weights), _ptr(out), J, P, int(trimmed), tf, stream)
+            err = _lib().repro_fused_combine_f32(_ptr(x), _ptr(weights), _ptr(out), *tail)
         _raise_on(err, "fused_combine")
         LAUNCHES["fused_combine"] += 1
     return out
