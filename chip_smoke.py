@@ -13,9 +13,11 @@ non-zero):
      build seconds; check that float32 matmuls run in full float32 (no TF32);
   2. every kernel against its plain PyTorch version on the card, with the
      tolerance printed beside the error: the wire kernels at the hier_bnn
-     main path's shapes (J=10, P=100,354) and at ragged ones (the upload in
-     every mode also at P % 4 != 0, P below one chunk, J = 1 and 64,
-     P % 4 == 0 and x off 16-byte alignment); the
+     main path's shapes (J=10, P=100,354), at the paper models' (the smoke
+     config's (4, 3,942), multinomial's (25, 15,702), ProdLDA's (3, 84,002):
+     P % 4 = 2, and J = 25 the combine's passes of 16 rows) and at ragged
+     ones (the upload in every mode also at P % 4 != 0, P below one chunk,
+     J = 1 and 64, P % 4 == 0 and x off 16-byte alignment); the
      Newton–Schulz step at d from 1 to 1,970; the whole 40-step square
      root (one launch of the root kernel up to the wrapper's limit d, 40
      step calls past it) at d from 1 to the limit + 1, and against the 40
@@ -32,8 +34,10 @@ non-zero):
      the backward at the same N. Then the whole port
      on the card (fused wire, CUDA kernels) against the port on the CPU
      (flat wire, plain stages) on one injected random stream: hier_bnn at
-     a small width, and the GLMM + Cholesky global family at full width,
-     SFVI and SFVI-Avg. Then the
+     a small width, the GLMM + Cholesky global family at full width,
+     multinomial at the smoke config's width (in_dim 196, J = 4) and
+     ProdLDA at a small vocab (200 words, 8 topics, J = 3), each SFVI and
+     SFVI-Avg (θ and η_G held). Then the
      backbone's kernels against their plain versions in bf16 and f32:
      flash attention (bf16 on the tensor-core kernel with one and with two
      warpgroups a block, each bf16 output also element by element within
@@ -71,6 +75,21 @@ non-zero):
        children a silo), rank-2
        low-rank global family, unitriangular conditional local family,
        SFVI-Avg + trimmed mean (0.2) 2 rounds;
+       multinomial regression (S3.2) at Table S1's small-silo width
+       (in_dim 784, 10 classes, J=25 silos of 200, K=25; θ = (log σ_W,
+       log σ_b), so SFVI-Avg forms the combined wire row as well as the
+       barycenter's two moment rows: 3 combines a round) — SFVI 3 rounds,
+       SFVI-Avg 3 rounds;
+       the benchmark smoke config (multinomial, in_dim 196, J=4 silos of
+       60, K=4, lr 0.02, 25 rounds) — SFVI, SFVI-Avg, SFVI-Avg + int8,
+       SFVI-Avg + DP (z 0.3, C 0.3), with bytes up + down a round of
+       504,576, 126,144, 78,856 and 126,144 and the DP row's ε after 25
+       rounds within 1e-4 of 289.2907;
+       hetero_mn at its registry defaults (240 samples in Dirichlet(0.5)
+       silos, in_dim 196, J=4, K=4) — SFVI-Avg + int8 + DP 2 rounds;
+       ProdLDA (§4.2: vocab 2,000, 21 topics, J=3 silos of 400 documents)
+       — SFVI K=25 3 rounds, SFVI-Avg K=50 2 rounds;
+     each model's eval line (accuracy, coherence) after its runs;
      then 2 more rounds of each run under ``torch.profiler`` for the
      device's busy and idle share. Then the backbone's serve path
      (``repro_torch.launch.serve_backbone.serve``) at full width in bf16,
@@ -85,7 +104,9 @@ non-zero):
      memory, then one more prefill and two more decode steps under
      ``torch.profiler``;
   4. timings of each kernel, its plain version and, where one exists,
-     PyTorch's own call(s) computing the same function: ``ms`` (CUDA
+     PyTorch's own call(s) computing the same function (the upload and
+     the mean combine also at multinomial's (25, 15,702) and ProdLDA's
+     (3, 84,002)): ``ms`` (CUDA
      events, median of 20 single launches, each queued behind a sleep
      kernel so host overhead is excluded; the inputs stay in L2 between
      launches) and, for the kernel and the library call, ``run_ms`` (one
@@ -142,6 +163,7 @@ import sys
 import tempfile
 import time
 from pathlib import Path
+from typing import NamedTuple
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
@@ -204,6 +226,10 @@ def upload_cases(torch, J, P, gen):
 # (J, P) of the upload checks besides the main path's: ragged P (P % 4 != 0,
 # P smaller than one chunk), one row, many rows, P % 4 == 0 (float4 loads).
 UPLOAD_SHAPES = [(7, 4099), (3, 5), (10, 1003), (1, MAIN_P), (64, 20_002), (16, 65_536)]
+# The paper models' wire rows (θ's 2 floats beside η_G = (mu, log_sigma)):
+# the benchmark smoke config's multinomial (in_dim 196), multinomial at
+# Table S1's width (in_dim 784, J = 25) and ProdLDA at §4.2's (2 x 21 x 2,000).
+PAPER_SHAPES = [(4, 3942), (25, 15_702), (3, 84_002)]
 
 
 def check_upload(torch, wire, ref, J, P, gen, offset=0):
@@ -332,7 +358,8 @@ def check_trim_33(torch, wire, ref, gen):
 # and the scalars: only the tile barrier makes them wait, and the cases
 # before leave other n, k and rows in shared memory.
 COMBINE_SHAPES = [(7, 4099), (10, 50_177), (2, 5), (2, 20), (6, 20), (5, 4097), (3, 4098),
-                  (1, 7), (16, 515), (20, 777), (33, 1001), (64, 50_177), (1024, 48)]
+                  (1, 7), (16, 515), (20, 777), (33, 1001), (64, 50_177),
+                  (1024, 48)] + PAPER_SHAPES
 
 
 def check_combine_plan(torch, wire):
@@ -469,8 +496,16 @@ def reparam_inputs(torch, n, dtype, gen, shift=0):
 
 
 def logq_f64(torch, ls, eps):
+    """The float64 log q and the float64 sum of its terms' magnitudes, the
+    scale of a float32 sum's rounding. A sum near 0 has no relative error
+    worth the name (at N = 1 the float32 ½ log 2π alone is 1.6e-8 off), so
+    1 % of that scale floors the denominator there; a large sum keeps
+    |sum| as its own."""
     e, l = eps.double(), ls.double()
-    return float((-0.5 * e * e - l - 0.5 * math.log(2.0 * math.pi)).sum())
+    half_log_2pi = 0.5 * math.log(2.0 * math.pi)
+    terms = -0.5 * e * e - l - half_log_2pi
+    scale = (0.5 * e * e).sum() + l.abs().sum() + half_log_2pi * e.numel()
+    return float(terms.sum()), float(scale)
 
 
 def check_reparam_fwd(torch, reparam, ref, n, dtype, gen, shift):
@@ -487,14 +522,14 @@ def check_reparam_fwd(torch, reparam, ref, n, dtype, gen, shift):
     assert z.dtype == dtype and lq.dtype == torch.float32
     err = float((z.float() - z0.float()).abs().max())
     tol = 1e-5 * (1.0 + float(z0.float().abs().max()))
-    exact = logq_f64(torch, ls, eps)
+    exact, scale = logq_f64(torch, ls, eps)
     rel = abs(float(lq) - float(lq0)) / abs(float(lq0))
-    rel64 = abs(float(lq) - exact) / abs(exact)
+    rel64 = abs(float(lq) - exact) / max(abs(exact), 1e-2 * scale)
     same = bool(torch.equal(lq, lq2) and torch.equal(z, z2))
     route = f"vec {plan.vec}" if plan.vec > 1 else "scalar, 1 elt off"
     print(f"  reparam_stl fwd N={n} {str(dtype)[6:]:<8} [{route}, grid {plan.grid}]: "
           f"z max_abs={err:.3e} (<= {tol:.1e}), logq rel={rel:.2e} vs plain, {rel64:.2e} vs "
-          f"f64 (<= 1e-5), two calls bit-identical={same}", flush=True)
+          f"f64 (of max(|sum|, 1% of the terms' |sum|), <= 1e-5), two calls bit-identical={same}", flush=True)
     assert err <= tol and rel <= 1e-5 and rel64 <= 1e-5 and same, (n, dtype, shift)
     return err
 
@@ -512,7 +547,7 @@ def check_reparam_streams(torch, reparam, ref, gen):
                 outs[i].append(reparam.reparam_fwd(*ins))
     sync(torch)
     for i, ins in enumerate(sets):
-        exact = logq_f64(torch, ins[1], ins[2])
+        exact, _ = logq_f64(torch, ins[1], ins[2])  # large sums: no cancellation
         _, lq0 = ref.reparam_stl_ref(*ins)
         for z, lq in outs[i]:
             rel = abs(float(lq) - exact) / abs(exact)
@@ -567,16 +602,19 @@ def check_reparam(torch, reparam, ref, gen):
 
 
 def injected_draws(np, torch, problem, J, P, seed):
-    """draws(r, t) from numpy: one stream both sides consume."""
+    """draws(r, t) from numpy: one stream both sides consume (no ε_L when
+    the model has no local latents)."""
     from repro_torch.core.family import eps_shape
 
     def draws(r, t):
         rng = np.random.default_rng([seed, r, t])
         eps_G = rng.standard_normal(eps_shape(problem.global_family)).astype(np.float32)
-        eps_L = rng.standard_normal(
-            (J,) + eps_shape(problem.local_family)).astype(np.float32)
+        eps_L = None
+        if problem.model.has_local:
+            eps_L = torch.from_numpy(rng.standard_normal(
+                (J,) + eps_shape(problem.local_family)).astype(np.float32))
         noise = rng.standard_normal((J, P)).astype(np.float32)
-        return torch.from_numpy(eps_G), torch.from_numpy(eps_L), torch.from_numpy(noise)
+        return torch.from_numpy(eps_G), eps_L, torch.from_numpy(noise)
 
     return draws
 
@@ -595,8 +633,8 @@ def glmm_bundle(J, children, global_family, local_family=None):
 def compare_cuda_vs_cpu(np, torch, label, bundle, configs, K, seed):
     """Each config 3 rounds on one injected stream: the port on the card
     (fused wire, CUDA kernels) against the port on the CPU (flat wire,
-    plain stages). Holds the ELBO to 1e-3 relative and η_G to 1e-3, both
-    absolute and relative to each leaf's largest entry."""
+    plain stages). Holds the ELBO to 1e-3 relative and θ and η_G to 1e-3,
+    both absolute and relative to each leaf's largest entry."""
     from repro_torch.device import generator
     from repro_torch.federated.runtime import Server
     from repro_torch.optim import adam
@@ -609,7 +647,8 @@ def compare_cuda_vs_cpu(np, torch, label, bundle, configs, K, seed):
         servers = {}
         for dev, layout in (("cpu", "flat"), (DEVICE, "fused")):
             datas = [tree_map(lambda x, dev=dev: x.to(dev), d) for d in bundle.datas]
-            servers[layout] = Server(problem, datas, {}, eta_G0, num_obs=bundle.num_obs,
+            servers[layout] = Server(problem, datas, bundle.theta0, eta_G0,
+                                     num_obs=bundle.num_obs,
                                      server_opt=adam(2e-2), local_opt=adam(2e-2),
                                      wire=layout, device=dev, **cfg)
         servers["fused"].state = tree_map(lambda x: x.to(DEVICE), servers["flat"].state)
@@ -618,12 +657,13 @@ def compare_cuda_vs_cpu(np, torch, label, bundle, configs, K, seed):
         e_c = np.asarray(hist["flat"]["elbo_trace"])
         e_g = np.asarray(hist["fused"]["elbo_trace"])
         rel = float(np.max(np.abs(e_c - e_g) / np.abs(e_c)))
-        pairs = [(a.cpu(), b) for a, b in zip(tree_leaves(servers["fused"].eta_G),
-                                              tree_leaves(servers["flat"].eta_G), strict=True)]
+        pairs = [(a.cpu(), b) for key in ("theta", "eta_G")
+                 for a, b in zip(tree_leaves(servers["fused"].state[key]),
+                                 tree_leaves(servers["flat"].state[key]), strict=True)]
         diff = max(float((a - b).abs().max()) for a, b in pairs)
         diff_rel = max(float((a - b).abs().max() / b.abs().max()) for a, b in pairs)
         print(f"  port {DEVICE}/fused vs cpu/flat [{label} {name}] 3 rounds: elbo "
-              f"max_rel={rel:.2e} (<= 1e-3), eta_G max_abs={diff:.2e} (<= 1e-3), "
+              f"max_rel={rel:.2e} (<= 1e-3), theta+eta_G max_abs={diff:.2e} (<= 1e-3), "
               f"max_rel={diff_rel:.2e} (<= 1e-3, per leaf against its largest entry)",
               flush=True)
         assert np.all(np.isfinite(e_g)) and rel <= 1e-3, name
@@ -634,7 +674,10 @@ def compare_cuda_vs_cpu(np, torch, label, bundle, configs, K, seed):
 def check_port_cuda_vs_cpu(np, torch):
     """hier_bnn at a small width (J=3, K=2), three wire configurations; then
     glmm + Cholesky at full width (536 children, J=2, K=25), SFVI and
-    SFVI-Avg (upload, combine and Newton–Schulz kernels)."""
+    SFVI-Avg (upload, combine and Newton–Schulz kernels); then multinomial
+    at the smoke config's width (in_dim 196, J=4 silos of 60, K=4) and
+    ProdLDA at a small vocab (200 words, 8 topics, J=3 silos of 40, K=4),
+    SFVI and SFVI-Avg (θ ≠ ∅: the combined wire row on the card)."""
     from repro_torch.federated.aggregation import Int8Compressor, TrimmedMeanAggregator
     from repro_torch.federated.privacy import PrivacyPolicy
     from repro_torch.models.paper.registry import get_model
@@ -655,6 +698,16 @@ def check_port_cuda_vs_cpu(np, torch):
         glmm_bundle(GLMM_J, GLMM_CHILDREN, ("cholesky",)),
         {"sfvi": dict(strategy="sfvi"), "sfvi_avg": dict(strategy="sfvi_avg")},
         K=GLMM_K, seed=12)
+    both = {"sfvi": dict(strategy="sfvi"), "sfvi_avg": dict(strategy="sfvi_avg")}
+    compare_cuda_vs_cpu(
+        np, torch, "multinomial in_dim 196 J=4",
+        get_model("multinomial").build(0, 4, device="cpu", n_per=60, in_dim=196),
+        both, K=4, seed=13)
+    compare_cuda_vs_cpu(
+        np, torch, "prodlda vocab 200 J=3",
+        get_model("prodlda").build(0, 3, device="cpu", vocab_size=200, num_topics=8,
+                                   docs_per_silo=40),
+        both, K=4, seed=14)
 
 
 # ---------------------------------------------------------------------------
@@ -1216,6 +1269,18 @@ PORT_KERNELS = ("upload_norm_kernel", "upload_apply_kernel",
                 "gla_tc_kernel", "rmsnorm_kernel")
 
 
+def device_spans(prof) -> list:
+    """(start, end, name) of each device event of a torch.profiler trace,
+    in ns, read from its raw Kineto results: the device events that
+    ``prof.events()`` keeps, without the host-side event tree it builds
+    first (seconds for a trace of 10,000 events)."""
+    from torch.autograd import DeviceType
+
+    return sorted((e.start_ns(), e.start_ns() + e.duration_ns(), e.name())
+                  for e in prof.profiler.kineto_results.events()
+                  if e.device_type() == DeviceType.CUDA and not e.is_hidden_event())
+
+
 def profile_summary(prof, wall_s: float, top: int = 8) -> dict:
     """Device busy share and kernel time by name from a torch.profiler trace.
 
@@ -1223,15 +1288,12 @@ def profile_summary(prof, wall_s: float, top: int = 8) -> dict:
     is the rest of the host wall time of the traced rounds. ``port_kernels``
     sums the device time and calls of each of the port's own kernels.
     """
-    from torch.autograd import DeviceType
-
-    spans = sorted((e.time_range.start, e.time_range.end, e.name)
-                   for e in prof.events() if e.device_type == DeviceType.CUDA)
-    busy_us, end_us, by_name = 0.0, float("-inf"), {}
+    spans = device_spans(prof)
+    busy_ns, end_ns, by_name = 0, 0, {}
     for start, end, name in spans:
-        busy_us += max(0.0, end - max(start, end_us))
-        end_us = max(end_us, end)
-        total, calls = by_name.get(name, (0.0, 0))
+        busy_ns += max(0, end - max(start, end_ns))
+        end_ns = max(end_ns, end)
+        total, calls = by_name.get(name, (0, 0))
         by_name[name] = (total + end - start, calls + 1)
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
     port = {}
@@ -1239,12 +1301,12 @@ def profile_summary(prof, wall_s: float, top: int = 8) -> dict:
         for sym in PORT_KERNELS:
             if re.search(rf"\b{sym}\b", n):
                 ms, calls = port.get(sym, (0.0, 0))
-                port[sym] = (ms + t * 1e-3, calls + c)
+                port[sym] = (ms + t * 1e-6, calls + c)
     return {
-        "wall_s": wall_s, "device_busy_s": busy_us * 1e-6,
-        "idle_share": 1.0 - busy_us * 1e-6 / wall_s,
+        "wall_s": wall_s, "device_busy_s": busy_ns * 1e-9,
+        "idle_share": 1.0 - busy_ns * 1e-9 / wall_s,
         "device_events": len(spans),
-        "top": [{"name": n[:80], "ms": t * 1e-3, "calls": c} for n, (t, c) in ranked],
+        "top": [{"name": n[:80], "ms": t * 1e-6, "calls": c} for n, (t, c) in ranked],
         "port_kernels": {k: {"ms": ms, "calls": c} for k, (ms, c) in sorted(port.items())},
     }
 
@@ -1264,18 +1326,41 @@ def profile_rounds(torch, srv, K, start_round, rounds=2) -> dict:
 KERNEL_COUNTS = ("fused_upload", "fused_combine", "newton_schulz_step", "sqrtm_newton_schulz")
 
 
-def drive(torch, wire, reparam, label, srv, rounds, K, want_up, per_round, rise):
+class Run(NamedTuple):
+    """One phase-3 run: ``rounds`` counted rounds of ``strategy`` on ``bundle``.
+
+    ``per_round`` holds the launches a round of each kernel in
+    ``KERNEL_COUNTS``; ``want_up`` the bytes up a round; ``want_total``, if
+    set, up + down a round; ``want_eps``, if set, ε after the counted
+    rounds (within 1e-4); ``rise``: the ELBO must rise over them; ``P``, if
+    set, the server's wire row."""
+
+    label: str
+    bundle: object
+    strategy: str
+    rounds: int
+    K: int
+    extra: dict
+    want_up: int
+    per_round: tuple
+    rise: bool
+    want_total: int | None = None
+    want_eps: float | None = None
+    P: int | None = None
+
+
+def drive(torch, wire, reparam, srv, run):
     """One main-path run with the launch counters set to 0 just before and
-    read just after; asserts bytes and launches per round, then profiles
-    two more rounds. ``per_round`` holds the launches a round of each kernel
-    in ``KERNEL_COUNTS``; the reparam kernels, which no round calls, must
-    stay at 0."""
+    read just after; asserts bytes, ε and launches per round, then profiles
+    two more rounds. The reparam kernels, which no round calls, must stay
+    at 0."""
+    label, rounds = run.label, run.rounds
     stamps = []
     sync(torch)
     wire.reset_launches()
     reparam.reset_launches()
     t0 = time.perf_counter()
-    h = srv.run(rounds, local_steps=K,
+    h = srv.run(rounds, local_steps=run.K,
                 callback=lambda r, m: stamps.append(time.perf_counter()))
     sync(torch)
     counts = {k: wire.LAUNCHES[k] for k in KERNEL_COUNTS}
@@ -1287,15 +1372,20 @@ def drive(torch, wire, reparam, label, srv, rounds, K, want_up, per_round, rise)
     if "epsilon" in h:
         print(f"  {label}: epsilon={h['epsilon']}", flush=True)
     assert all(math.isfinite(e) for e in h["elbo_trace"]), label
-    if rise:
+    if run.rise:
         assert h["elbo"][-1] > h["elbo"][0], f"{label}: ELBO did not rise"
-    assert h["bytes_up"] == [want_up] * rounds, (label, h["bytes_up"])
-    want = {k: n * rounds for k, n in zip(KERNEL_COUNTS, per_round, strict=True)}
+    assert h["bytes_up"] == [run.want_up] * rounds, (label, h["bytes_up"])
+    if run.want_total is not None:
+        totals = [u + d for u, d in zip(h["bytes_up"], h["bytes_down"], strict=True)]
+        assert totals == [run.want_total] * rounds, (label, totals)
+    if run.want_eps is not None:
+        assert abs(h["epsilon"][-1] - run.want_eps) <= 1e-4, (label, h["epsilon"][-1])
+    want = {k: n * rounds for k, n in zip(KERNEL_COUNTS, run.per_round, strict=True)}
     want.update({k: 0 for k in reparam.LAUNCHES})
     assert counts == want, (label, counts, want)
     for leaf in srv.eta_G.values():
         assert bool(torch.isfinite(leaf).all()), label
-    return counts, round_s, profile_rounds(torch, srv, K, start_round=rounds)
+    return counts, round_s, profile_rounds(torch, srv, run.K, start_round=rounds)
 
 
 def new_server(torch, bundle, algo, **extra):
@@ -1311,7 +1401,8 @@ def new_server(torch, bundle, algo, **extra):
                   wire="fused", seed=0, strategy=algo, device=DEVICE, **extra)
 
 
-def main_path(np, torch, wire, reparam, in_dim=784, hidden=64):
+def hier_bnn_glmm_runs(in_dim=784, hidden=64):
+    """hier_bnn at full width (J=10, K=4) and the GLMM at its benchmark's."""
     from repro_torch.federated.aggregation import Int8Compressor, TrimmedMeanAggregator
     from repro_torch.federated.privacy import PrivacyPolicy
     from repro_torch.models.paper.registry import get_model
@@ -1328,21 +1419,18 @@ def main_path(np, torch, wire, reparam, in_dim=784, hidden=64):
     # SFVI-Avg merges η_G as a barycenter: its two moment rows (mean, std)
     # go through the combine kernel, and no combined row is formed (θ = ∅).
     runs = [
-        # (label, bundle, strategy, rounds, K, Server kwargs, bytes up per round,
-        #  launches per round (upload, combine, Newton–Schulz step, square root),
-        #  ELBO must rise)
-        ("sfvi", bundle, "sfvi", 3, K, {}, K * J * 4 * P, (K, K, 0, 0), True),
-        ("sfvi_avg", bundle, "sfvi_avg", 3, K, {}, J * 4 * P, (1, 2, 0, 0), True),
-        ("sfvi_avg+int8+trimmed+dp", bundle, "sfvi_avg", 2, K,
-         dict(compressor=Int8Compressor(), aggregator=TrimmedMeanAggregator(0.1),
-              privacy=PrivacyPolicy(clip_norm=0.3, noise_multiplier=0.3)),
-         J * (P + 4), (1, 2, 0, 0), False),
+        Run("sfvi", bundle, "sfvi", 3, K, {}, K * J * 4 * P, (K, K, 0, 0), True, P=P),
+        Run("sfvi_avg", bundle, "sfvi_avg", 3, K, {}, J * 4 * P, (1, 2, 0, 0), True, P=P),
+        Run("sfvi_avg+int8+trimmed+dp", bundle, "sfvi_avg", 2, K,
+            dict(compressor=Int8Compressor(), aggregator=TrimmedMeanAggregator(0.1),
+                 privacy=PrivacyPolicy(clip_norm=0.3, noise_multiplier=0.3)),
+            J * (P + 4), (1, 2, 0, 0), False, P=P),
         # step cadence: int8 is dequantized inside the trimmed combine kernel
-        ("sfvi+int8+trimmed", bundle, "sfvi", 2, K,
-         dict(compressor=Int8Compressor(), aggregator=TrimmedMeanAggregator(0.1)),
-         K * J * (P + 4), (K, K, 0, 0), False),
+        Run("sfvi+int8+trimmed", bundle, "sfvi", 2, K,
+            dict(compressor=Int8Compressor(), aggregator=TrimmedMeanAggregator(0.1)),
+            K * J * (P + 4), (K, K, 0, 0), False, P=P),
     ]
-    assert [r[6] for r in runs] == [16_056_640, 4_014_160, 1_003_580, 4_014_320]
+    assert [r.want_up for r in runs] == [16_056_640, 4_014_160, 1_003_580, 4_014_320]
 
     # The paper's GLMM at its benchmark's width (536 children, J=2, K=25)
     # with the Cholesky global family: η_G = (mu, log_sigma, L_packed) is a
@@ -1359,25 +1447,110 @@ def main_path(np, torch, wire, reparam, in_dim=784, hidden=64):
                           ("conditional", {"use_chol": True}))
     print(f"  glmm: global dim 5, local dim {chol.problem.model.local_dim} (J={Jg}) / "
           f"{lowrank.problem.model.local_dim} (J=6), wire P=20, K={Kg}", flush=True)
-    runs += [
-        ("glmm+cholesky sfvi", chol, "sfvi", 3, Kg, {}, Kg * Jg * 4 * 20, (Kg, Kg, 0, 0), True),
-        ("glmm+cholesky sfvi_avg", chol, "sfvi_avg", 3, Kg, {}, Jg * 4 * 20,
-         (1, 1, 0, NS_ROOTS_PER_MERGE), True),
-        ("glmm+lowrank+chol_local sfvi_avg+trimmed", lowrank, "sfvi_avg", 2, Kg,
-         dict(aggregator=TrimmedMeanAggregator(0.2)), 6 * 4 * 20,
-         (1, 1, 0, NS_ROOTS_PER_MERGE), False),
+    glmm = [
+        Run("glmm+cholesky sfvi", chol, "sfvi", 3, Kg, {}, Kg * Jg * 4 * 20, (Kg, Kg, 0, 0),
+            True),
+        Run("glmm+cholesky sfvi_avg", chol, "sfvi_avg", 3, Kg, {}, Jg * 4 * 20,
+            (1, 1, 0, NS_ROOTS_PER_MERGE), True),
+        Run("glmm+lowrank+chol_local sfvi_avg+trimmed", lowrank, "sfvi_avg", 2, Kg,
+            dict(aggregator=TrimmedMeanAggregator(0.2)), 6 * 4 * 20,
+            (1, 1, 0, NS_ROOTS_PER_MERGE), False),
     ]
-    assert [r[6] for r in runs[4:]] == [4000, 160, 480]
+    assert [r.want_up for r in glmm] == [4000, 160, 480]
+    return runs + glmm
+
+
+# The benchmark smoke config (benchmarks/baseline.json "config"): the
+# multinomial model, in_dim 196, J=4 silos of 60, K=4, lr 0.02, 25 rounds.
+SMOKE_J, SMOKE_N, SMOKE_DIM, SMOKE_K, SMOKE_ROUNDS = 4, 60, 196, 4, 25
+
+
+def paper_model_runs():
+    """The paper's multinomial (S3.2), hetero_mn and ProdLDA (§4.2) at full
+    width. θ ≠ ∅ in each (2 floats on the wire row), so an SFVI-Avg merge is
+    3 combines: the combined row (for θ) and the barycenter's mean and std
+    rows; one upload a round. SFVI: K uploads and K combines a round."""
+    from repro_torch.federated.aggregation import Int8Compressor
+    from repro_torch.federated.privacy import PrivacyPolicy
+    from repro_torch.models.paper.registry import get_model
+
+    # Table S1's small-silo run (benchmarks/bench_multinomial.py:49-51):
+    # Z_G = (W, b) in R^7,850, so P = 2 x 7,850 + 2 = 15,702.
+    J, K = 25, 25
+    mn = get_model("multinomial").build(0, J, device=DEVICE, n_per=200, in_dim=784)
+    P = mn.problem.model.global_dim * 2 + 2
+    runs = [
+        Run(f"multinomial J={J} sfvi", mn, "sfvi", 3, K, {}, K * J * 4 * P, (K, K, 0, 0),
+            True, P=P),
+        Run(f"multinomial J={J} sfvi_avg", mn, "sfvi_avg", 3, K, {}, J * 4 * P,
+            (1, 3, 0, 0), True, P=P),
+    ]
+    # The smoke config's four synchronous rows, with the baseline's figures.
+    Js, Ks = SMOKE_J, SMOKE_K
+    smoke = get_model("multinomial").build(0, Js, device=DEVICE, n_per=SMOKE_N,
+                                           in_dim=SMOKE_DIM)
+    Ps = smoke.problem.model.global_dim * 2 + 2
+    dp = PrivacyPolicy(clip_norm=0.3, noise_multiplier=0.3)
+    runs += [
+        Run("smoke SFVI", smoke, "sfvi", SMOKE_ROUNDS, Ks, {}, Ks * Js * 4 * Ps,
+            (Ks, Ks, 0, 0), True, want_total=504_576, P=Ps),
+        Run("smoke SFVI-Avg", smoke, "sfvi_avg", SMOKE_ROUNDS, Ks, {}, Js * 4 * Ps,
+            (1, 3, 0, 0), True, want_total=126_144, P=Ps),
+        Run("smoke SFVI-Avg int8", smoke, "sfvi_avg", SMOKE_ROUNDS, Ks,
+            dict(compressor=Int8Compressor()), Js * (Ps + 4), (1, 3, 0, 0), True,
+            want_total=78_856, P=Ps),
+        Run("smoke SFVI-Avg dp(z=0.3,C=0.3)", smoke, "sfvi_avg", SMOKE_ROUNDS, Ks,
+            dict(privacy=dp), Js * 4 * Ps, (1, 3, 0, 0), False, want_total=126_144,
+            want_eps=289.2907, P=Ps),
+    ]
+    # hetero_mn at its registry defaults: ragged Dirichlet(0.5) silos padded
+    # to the widest, the true N_j in num_obs.
+    het = get_model("hetero_mn").build(0, 4, device=DEVICE)
+    runs.append(Run("hetero_mn sfvi_avg+int8+dp", het, "sfvi_avg", 2, 4,
+                    dict(compressor=Int8Compressor(),
+                         privacy=PrivacyPolicy(clip_norm=0.3, noise_multiplier=0.3)),
+                    4 * (Ps + 4), (1, 3, 0, 0), False, P=Ps))
+    # ProdLDA at §4.2's width (benchmarks/bench_prodlda.py:37): Z_G = T in
+    # R^(21 x 2,000), so P = 2 x 42,000 + 2 = 84,002.
+    Jl = 3
+    lda = get_model("prodlda").build(0, Jl, device=DEVICE, vocab_size=2000, num_topics=21,
+                                     docs_per_silo=400)
+    Pl = lda.problem.model.global_dim * 2 + 2
+    runs += [
+        Run("prodlda sfvi", lda, "sfvi", 3, 25, {}, 25 * Jl * 4 * Pl, (25, 25, 0, 0), True,
+            P=Pl),
+        Run("prodlda sfvi_avg", lda, "sfvi_avg", 2, 50, {}, Jl * 4 * Pl, (1, 3, 0, 0), True,
+            P=Pl),
+    ]
+    print(f"  multinomial: wire P={P} (J={J}, K={K}); smoke P={Ps} (J={Js}, K={Ks}); "
+          f"hetero_mn N_j={het.num_obs}; prodlda: wire P={Pl} (J={Jl})", flush=True)
+    assert (P, Ps, Pl) == (15_702, 3942, 84_002)
+    assert [r.want_up for r in runs] == [39_255_000, 1_570_200, 252_288, 63_072, 15_784,
+                                         63_072, 15_784, 25_200_600, 1_008_024]
+    return runs
+
+
+def main_path(np, torch, wire, reparam):
+    """Every phase-3 run in turn; each model's eval line after its last run."""
     totals = {k: 0 for k in KERNEL_COUNTS}
     seconds, profiles = {}, {}
-    for label, bun, algo, rounds, k_steps, extra, want_up, per_round, rise in runs:
-        srv = new_server(torch, bun, algo, **extra)
-        if bun is bundle:
-            assert srv.wire_spec().dim == MAIN_P
-        counts, seconds[label], profiles[label] = drive(
-            torch, wire, reparam, label, srv, rounds, k_steps, want_up, per_round, rise)
+    t0 = time.perf_counter()
+    runs = hier_bnn_glmm_runs() + paper_model_runs()
+    print(f"  bundles built in {time.perf_counter() - t0:.1f} s", flush=True)
+    for i, run in enumerate(runs):
+        t0 = time.perf_counter()
+        srv = new_server(torch, run.bundle, run.strategy, **run.extra)
+        if run.P is not None:
+            assert srv.wire_spec().dim == run.P, (run.label, srv.wire_spec().dim)
+        counts, seconds[run.label], profiles[run.label] = drive(
+            torch, wire, reparam, srv, run)
         for k in totals:
             totals[k] += counts[k]
+        last = i + 1 == len(runs) or runs[i + 1].bundle is not run.bundle
+        if last and run.bundle.eval_fn is not None:
+            print(f"  {run.label}: eval {run.bundle.eval_fn(srv)}", flush=True)
+        print(f"  {run.label}: {time.perf_counter() - t0:.1f} s, profile and eval included",
+              flush=True)
     return totals, seconds, profiles
 
 
@@ -1609,22 +1782,16 @@ def time_row(torch, name, mode, kernel, plain, library=None, **row):
                 library_run_ms=lib_run, **row)
 
 
-def timings(np, torch, wire, ref, reparam, attention, gla, rmsnorm, gen):
-    J, P = MAIN_J, MAIN_P
+def wire_rows(torch, wire, ref, J, P, gen, suffix="", modes=("sfvi", "sfvi_avg")):
+    """The upload in ``modes`` and the mean combine at (J, P); each row's mode
+    carries ``suffix``. Returns the rows and the (x, ones) inputs."""
     x = torch.randn((J, P), generator=gen, device=DEVICE)
     noise = torch.randn((J, P), generator=gen, device=DEVICE)
     refrow = 0.1 * torch.randn((P,), generator=gen, device=DEVICE)
     ones = torch.ones((J,), device=DEVICE)
-    q, s = wire.fused_upload(x, mask=ones, quantize=True)
     f4 = 4
     rows = []
     col = ones[:, None]
-    # The launch floor: one launch that does no work (PyTorch's spin kernel
-    # asked to spin 0 cycles), timed both ways.
-    floor_ms, floor_run = timed(torch, lambda: torch.cuda._sleep(0), ())
-    rows.append(dict(name="empty_kernel", mode="launch_floor", ms=floor_ms, run_ms=floor_run,
-                     plain_ms=None, library_ms=None, library_run_ms=None, nbytes=0, flops=0,
-                     shape=[]))
     uploads = {
         # mode: (kwargs, bytes moved: inputs read once + outputs written once,
         #        one PyTorch call computing the same function, or None)
@@ -1639,7 +1806,8 @@ def timings(np, torch, wire, ref, reparam, attention, gla, rmsnorm, gen):
                                   noise_multiplier=0.3, quantize=True),
                              J * P * f4 * 2 + P * f4 + J * f4 + J * P + J * f4, None),
     }
-    for mode, (kw, nbytes, library) in uploads.items():
+    for mode in modes:
+        kw, nbytes, library = uploads[mode]
         dp = "noise_multiplier" in kw
         args = (x, noise) if dp else (x,)
 
@@ -1649,29 +1817,45 @@ def timings(np, torch, wire, ref, reparam, attention, gla, rmsnorm, gen):
         if library is not None:  # the yardstick computes the same function
             assert float((library(x) - upload(x)).abs().max()) <= 1e-6, mode
         rows.append(time_row(
-            torch, "fused_upload", mode, (upload, args),
+            torch, "fused_upload", mode + suffix, (upload, args),
             lambda kw=kw, dp=dp: ref.wire_upload_ref(x, **kw, **({"noise": noise} if dp else {})),
-            None if library is None else (library, (x,)), nbytes=nbytes, flops=12 * J * P))
-    w = ones
-    combines = {
-        "mean": (dict(), x, J * P * f4 + J * f4 + P * f4, 2 * J * P),
-        "trimmed_int8": (dict(scales=s, trim_frac=0.1), q,
-                         J * P + 2 * J * f4 + P * f4,
-                         int(J * math.ceil(math.log2(J))) * P + 2 * J * P),
-    }
-    for mode, (kw, mat, nbytes, flops) in combines.items():
-        def plain(kw=kw, mat=mat):
-            m = ref.int8_rows_dequant_ref(mat, kw["scales"]) if "scales" in kw else mat
-            if "trim_frac" in kw:
-                return ref.masked_trimmed_mean_ref(m, w, kw["trim_frac"])
-            return ref.masked_weighted_mean_ref(m, w)
+            None if library is None else (library, (x,)), nbytes=nbytes, flops=12 * J * P,
+            shape=[J, P]))
+    denom = torch.sum(ones)
+    rows.append(time_row(
+        torch, "fused_combine", "mean" + suffix,
+        (lambda x: wire.fused_combine(x, ones), (x,)),
+        lambda: ref.masked_weighted_mean_ref(x, ones),
+        (lambda x: torch.mv(x.T, ones) / denom, (x,)),
+        nbytes=J * P * f4 + J * f4 + P * f4, flops=2 * J * P, shape=[J, P]))
+    return rows, x, ones
 
-        denom = torch.sum(w)
-        rows.append(time_row(
-            torch, "fused_combine", mode,
-            (lambda mat, kw=kw: wire.fused_combine(mat, w, **kw), (mat,)), plain,
-            (lambda x: torch.mv(x.T, w) / denom, (x,)) if mode == "mean" else None,
-            nbytes=nbytes, flops=flops))
+
+def timings(np, torch, wire, ref, reparam, attention, gla, rmsnorm, gen):
+    J, P = MAIN_J, MAIN_P
+    f4 = 4
+    rows = []
+    # The launch floor: one launch that does no work (PyTorch's spin kernel
+    # asked to spin 0 cycles), timed both ways.
+    floor_ms, floor_run = timed(torch, lambda: torch.cuda._sleep(0), ())
+    rows.append(dict(name="empty_kernel", mode="launch_floor", ms=floor_ms, run_ms=floor_run,
+                     plain_ms=None, library_ms=None, library_run_ms=None, nbytes=0, flops=0,
+                     shape=[]))
+    main_rows, x, ones = wire_rows(torch, wire, ref, J, P, gen,
+                                   modes=("sfvi", "sfvi_avg", "sfvi_avg_int8_dp"))
+    rows += main_rows
+    q, s = wire.fused_upload(x, mask=ones, quantize=True)
+    # The trimmed mean dequantizing int8 in the kernel: no single PyTorch call.
+    rows.append(time_row(
+        torch, "fused_combine", "trimmed_int8",
+        (lambda q: wire.fused_combine(q, ones, scales=s, trim_frac=0.1), (q,)),
+        lambda: ref.masked_trimmed_mean_ref(ref.int8_rows_dequant_ref(q, s), ones, 0.1),
+        nbytes=J * P + 2 * J * f4 + P * f4,
+        flops=int(J * math.ceil(math.log2(J))) * P + 2 * J * P))
+    # The upload and the mean at the paper models' full-width rows:
+    # multinomial's (25, 15,702) and ProdLDA's (3, 84,002).
+    for Jp, Pp in PAPER_SHAPES[1:]:
+        rows += wire_rows(torch, wire, ref, Jp, Pp, gen, suffix=f"_{Jp}x{Pp}")[0]
     # The combine kernel at the barycenter's shapes: the glmm means (2, 5)
     # and hier_bnn's moment rows (10, 50,177).
     for Jc, Pc in [(2, 5), (10, 50_177)]:
@@ -1986,6 +2170,11 @@ def main(timings_only: bool = False) -> int:
     t0 = time.perf_counter()
     build.build_all()
     print(f"build: {time.perf_counter() - t0:.1f}s for {sorted(build.SOURCES)}", flush=True)
+    phase_s, mark = {"build": time.perf_counter() - t0}, [time.perf_counter()]
+
+    def lap(name):
+        now = time.perf_counter()
+        phase_s[name], mark[0] = now - mark[0], now
 
     # Phase 2: kernels against their plain versions, then the port end to end.
     gen = torch.Generator(device=DEVICE)
@@ -1996,20 +2185,26 @@ def main(timings_only: bool = False) -> int:
         return 0
     print("phase 2: kernels vs plain versions", flush=True)
     err_up = check_upload(torch, wire, ref, MAIN_J, MAIN_P, gen)
-    for J, P in UPLOAD_SHAPES:
+    for J, P in UPLOAD_SHAPES + PAPER_SHAPES:
         check_upload(torch, wire, ref, J, P, gen)
     check_upload(torch, wire, ref, MAIN_J, MAIN_P, gen, offset=1)
     err_co = check_combine_all(torch, wire, ref, gen)
     err_ns = check_ns_step(torch, wire, ref, gen)
     err_rp = check_reparam(torch, reparam, ref, gen)
+    lap("2 wire, NS, reparam kernels")
     check_port_cuda_vs_cpu(np, torch)
+    lap("2b port card vs CPU")
     err_bb = check_backbone_kernels(torch, attention, gla, rmsnorm, ref, gen)
+    lap("2c backbone kernels")
     parity = check_backbone_cuda_vs_cpu(torch)
     print(json.dumps({"backbone_cuda_vs_cpu": parity}), flush=True)
+    lap("2d backbone card vs CPU")
 
     # Phase 3: the main paths at full width.
-    print("phase 3: main paths at full width (hier_bnn, glmm)", flush=True)
+    print("phase 3: main paths at full width (hier_bnn, glmm, multinomial, hetero_mn, "
+          "prodlda)", flush=True)
     totals, seconds, profiles = main_path(np, torch, wire, reparam)
+    lap("3 main paths")
     for label, round_s in seconds.items():
         print(json.dumps({"s_per_round": label, "rounds": round_s,
                           "median_after_first": statistics.median(round_s[1:])}),
@@ -2019,10 +2214,13 @@ def main(timings_only: bool = False) -> int:
     bb_totals, serve_results = serve_runs(torch, [attention, gla, rmsnorm], [wire, reparam])
     for res in serve_results:
         print(json.dumps(res), flush=True)
+    lap("3b serve runs")
 
     # Phase 4: timings.
     print("phase 4: timings", flush=True)
     rows = timings(np, torch, wire, ref, reparam, attention, gla, rmsnorm, gen)
+    lap("4 timings")
+    print(json.dumps({"phase_s": phase_s}), flush=True)
     kernels = kernels_line(rows, {**totals, **bb_totals},
                            {"fused_upload": err_up, "fused_combine": err_co,
                             **err_ns, **err_rp, **err_bb})

@@ -21,10 +21,11 @@ import numpy as np
 import torch
 
 from repro_torch.optim.adam import AdamWState, ScaleByAdamState
+from repro_torch.optim.base import ScaleByScheduleState
 from repro_torch.optim.sgd import MomentumState
 
-_STATE_CLASSES = {cls.__name__: cls
-                  for cls in (ScaleByAdamState, AdamWState, MomentumState)}
+_STATE_CLASSES = {cls.__name__: cls for cls in (
+    ScaleByAdamState, AdamWState, MomentumState, ScaleByScheduleState)}
 
 STATE_KEYS = ("theta", "eta_G", "eta_L", "opt_server", "opt_local")
 
@@ -53,14 +54,18 @@ def from_jax_state(state_np: Dict[str, Any], device) -> Dict[str, Any]:
 
 
 def datas_from_numpy(datas: Sequence[dict], device) -> List[dict]:
-    """Numpy silo dicts (``x``, ``y``) -> tensors on ``device``.
+    """Numpy silo dicts -> tensors on ``device``, every key converted.
 
-    Labels become int64, the index type ``torch.gather`` takes.
+    The label key ``y`` becomes int64, the index type ``torch.gather``
+    takes; every other key (``x``, hetero_mn's 0/1 row weights ``w``,
+    ProdLDA's word ``counts``) becomes float32. Counts below 2^24 are exact
+    in float32, and the reference casts them to the log-prob dtype anyway.
     """
     device = torch.device(device)
     return [{
-        "x": torch.as_tensor(np.array(d["x"], dtype=np.float32), device=device),
-        "y": torch.as_tensor(np.array(d["y"], dtype=np.int64), device=device),
+        k: torch.as_tensor(np.array(v, dtype=np.int64 if k == "y" else np.float32),
+                           device=device)
+        for k, v in d.items()
     } for d in datas]
 
 

@@ -1,4 +1,11 @@
-"""Core SFVI machinery of the port: families, model contract, objective."""
+"""Core SFVI machinery of the port: families, model contract, objectives."""
+from repro_torch.core.elbo import (
+    elbo_objective,
+    elbo_value,
+    iwae_objective,
+    iwae_value,
+    stl_objective,
+)
 from repro_torch.core.families import (
     BatchedDiagGaussian,
     CholeskyGaussian,
@@ -33,10 +40,15 @@ __all__ = [
     "VariationalFamily",
     "VectorSpec",
     "build_family",
+    "elbo_objective",
+    "elbo_value",
     "empty_theta",
     "eps_shape",
     "family_names",
     "get_family",
     "is_conditional",
+    "iwae_objective",
+    "iwae_value",
+    "stl_objective",
     "supports_moments",
 ]

@@ -12,12 +12,12 @@ terms only, never in the reparametrized samples.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional, Tuple
+from typing import Any, Optional, Sequence, Tuple, Union
 
 import torch
-from torch.func import grad_and_value
+from torch.func import grad_and_value, vmap
 
-from repro_torch.core.family import is_conditional
+from repro_torch.core.family import eps_shape, is_conditional
 from repro_torch.core.model import StructuredModel
 from repro_torch.tree import tree_map
 
@@ -92,3 +92,48 @@ class SFVIProblem:
         (g_theta, g_eta), val = grad_and_value(self.hat_L0, argnums=(0, 1))(
             theta, eta_G, eps_G)
         return g_theta, g_eta, val
+
+    # ---- single-machine reference (for the partition-invariance Remark) ---
+
+    def centralized_objective(self, theta, eta_G, eta_L_all: Optional[Sequence],
+                              eps_G, eps_L_all: Optional[Sequence],
+                              data_all: Sequence) -> torch.Tensor:
+        """L̂ = L̂_0 + Σ_j L̂_j in one graph — the single-silo answer.
+
+        The paper's Remark (§3): SFVI is invariant to data partitioning;
+        this is the oracle the property test compares the federated
+        gradient against.
+        """
+        total = self.hat_L0(theta, eta_G, eps_G)
+        for j, data_j in enumerate(data_all):
+            eta_Lj = eta_L_all[j] if eta_L_all is not None else None
+            eps_Lj = eps_L_all[j] if eps_L_all is not None else None
+            total = total + self.hat_Lj(theta, eta_G, eta_Lj, eps_G, eps_Lj, data_j)
+        return total
+
+    # ---- convenience ------------------------------------------------------
+
+    def sample_posterior(self, eta_G, eta_L,
+                         draws: Union[torch.Generator, Tuple[torch.Tensor, Optional[torch.Tensor]]],
+                         num_samples: int = 1):
+        """Draw (Z_G, Z_L) from the variational posterior (for prediction).
+
+        ``draws`` is a generator (ε_G, then ε_L, each with a leading
+        ``num_samples`` axis) or the injected pair ``(eps_G, eps_L)``;
+        Z_L is None when the model has no local latents or ``eta_L`` is None.
+        """
+        local = self.model.has_local and eta_L is not None
+        if isinstance(draws, torch.Generator):
+            def draw(fam):
+                return torch.randn((num_samples,) + eps_shape(fam), generator=draws,
+                                   device=draws.device)
+
+            eps_G = draw(self.global_family)
+            eps_L = draw(self.local_family) if local else None
+        else:
+            eps_G, eps_L = draws
+        z_G = vmap(lambda e: self.global_family.sample(eta_G, e))(eps_G)
+        if not local:
+            return z_G, None
+        z_L = vmap(lambda zg, e: self._sample_local(eta_L, zg, eta_G, e))(z_G, eps_L)
+        return z_G, z_L

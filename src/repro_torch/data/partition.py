@@ -1,13 +1,22 @@
 """Federated silo partitioners (numpy), copied from ``repro.data.partition``.
 
-The paper's §4.1 heterogeneity protocol and the explicit-size split of
-the GLMM.
+The random equal split, the explicit-size split of the GLMM, the
+Dirichlet non-IID split with unequal N_j and its padding to a common
+silo size, and the paper's §4.1 heterogeneity protocol. Pure numpy: the
+same ``np.random.default_rng(seed)`` gives the reference's index arrays
+bit for bit.
 """
 from __future__ import annotations
 
 from typing import List
 
 import numpy as np
+
+
+def iid_partition(rng: np.random.Generator, n: int, num_silos: int) -> List[np.ndarray]:
+    """Random equal split."""
+    perm = rng.permutation(n)
+    return [np.sort(chunk) for chunk in np.array_split(perm, num_silos)]
 
 
 def sizes_partition(rng: np.random.Generator, n: int, sizes: List[int]) -> List[np.ndarray]:
@@ -19,6 +28,78 @@ def sizes_partition(rng: np.random.Generator, n: int, sizes: List[int]) -> List[
     for s in sizes:
         out.append(np.sort(perm[start:start + s]))
         start += s
+    return out
+
+
+def dirichlet_label_partition(
+    rng: np.random.Generator,
+    labels: np.ndarray,
+    num_silos: int,
+    alpha: float = 0.5,
+    min_per_silo: int = 1,
+) -> List[np.ndarray]:
+    """Dirichlet non-IID partition (Hsu et al., 2019) with unequal N_j.
+
+    For every class, per-silo proportions ``p ~ Dir(alpha · 1_J)`` split
+    that class's samples (largest-remainder apportionment). Silos left
+    below ``min_per_silo`` samples are topped up from the largest silo;
+    raises ``ValueError`` when that cannot be done.
+    """
+    labels = np.asarray(labels)
+    num_classes = int(labels.max()) + 1
+    assignments: List[List[int]] = [[] for _ in range(num_silos)]
+    for c in range(num_classes):
+        idx = rng.permutation(np.where(labels == c)[0])
+        if len(idx) == 0:
+            continue
+        p = rng.dirichlet(np.full(num_silos, alpha))
+        quota = p * len(idx)
+        counts = np.floor(quota).astype(np.int64)
+        short = len(idx) - int(counts.sum())
+        for j in np.argsort(-(quota - counts))[:short]:
+            counts[j] += 1
+        start = 0
+        for j in range(num_silos):
+            assignments[j].extend(idx[start:start + counts[j]])
+            start += counts[j]
+    for j in range(num_silos):
+        while len(assignments[j]) < min_per_silo:
+            donor = max(range(num_silos), key=lambda i: len(assignments[i]))
+            if len(assignments[donor]) <= min_per_silo:
+                raise ValueError(
+                    f"cannot give every silo {min_per_silo} samples: "
+                    f"only {len(labels)} samples over {num_silos} silos")
+            assignments[j].append(assignments[donor].pop())
+    return [np.sort(np.asarray(a, np.int64)) for a in assignments]
+
+
+ROW_WEIGHT_KEY = "w"
+
+
+def pad_ragged_silos(datas: List[dict]) -> List[dict]:
+    """Pad unequal-N_j silo dicts to the widest silo + 0/1 row weights.
+
+    Every array is padded by repeating its row 0 (inert values) and a
+    ``ROW_WEIGHT_KEY`` float32 vector is added: 1.0 on real rows, 0.0 on
+    padding, so a model that weights its likelihood by it (``hetero_mn``)
+    gets exactly nothing from padded rows.
+    """
+    sizes = [len(next(iter(d.values()))) for d in datas]
+    n_max = max(sizes)
+    out = []
+    for d, n in zip(datas, sizes, strict=True):
+        if ROW_WEIGHT_KEY in d:
+            raise ValueError(f"silo data already has a {ROW_WEIGHT_KEY!r} key")
+        pad = n_max - n
+        padded = {
+            k: np.concatenate([v, np.repeat(v[:1], pad, axis=0)], axis=0)
+            if pad else np.asarray(v)
+            for k, v in d.items()
+        }
+        w = np.zeros((n_max,), np.float32)
+        w[:n] = 1.0
+        padded[ROW_WEIGHT_KEY] = w
+        out.append(padded)
     return out
 
 

@@ -1,5 +1,5 @@
 """Synthetic data (numpy), after ``repro.data.synthetic``: the MNIST
-stand-in and the six-cities GLMM data.
+stand-in, the LDA corpus and the six-cities GLMM data.
 
 The reference draws with ``jax.random``; this version draws from a numpy
 ``Generator``, so its data differ from the reference's for the same
@@ -56,6 +56,32 @@ def make_synthetic_mnist(
             x=x.astype(np.float32), y=y.astype(np.int64), num_classes=num_classes)
 
     return sample_split(num_train), sample_split(num_test)
+
+
+def make_lda_corpus(
+    rng: np.random.Generator,
+    num_docs: int = 1200,
+    vocab_size: int = 2000,
+    num_topics: int = 21,
+    doc_length_mean: int = 80,
+    beta: float = 0.05,
+    alpha: float = 0.3,
+) -> tuple:
+    """A corpus drawn from a *true* LDA model (20Newsgroups stand-in).
+
+    Topics ~ Dirichlet(β·1_vocab), doc-topic weights ~ Dirichlet(α·1_topics),
+    lengths ~ Poisson(``doc_length_mean``) clipped below at 10, then each
+    document's words ~ Categorical(doc_topic @ topics). Returns ``(counts,
+    true_topics)``: counts (num_docs, vocab_size) int32 bag-of-words,
+    true_topics (num_topics, vocab_size) float32.
+    """
+    true_topics = rng.dirichlet(np.full(vocab_size, beta), size=num_topics)
+    doc_topic = rng.dirichlet(np.full(num_topics, alpha), size=num_docs)
+    lengths = np.clip(rng.poisson(doc_length_mean, num_docs), 10, None)
+    word_probs = doc_topic @ true_topics
+    word_probs /= word_probs.sum(axis=-1, keepdims=True)
+    counts = rng.multinomial(lengths, word_probs)
+    return counts.astype(np.int32), true_topics.astype(np.float32)
 
 
 def make_six_cities(rng: np.random.Generator, num_children: int = 537) -> tuple:

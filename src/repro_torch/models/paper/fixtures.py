@@ -1,10 +1,11 @@
-"""Shared federation fixtures for the paper's §4.1 experiment.
+"""Shared federation fixtures for the paper's §4 experiments.
 
-The port's twin of ``repro.models.paper.fixtures.hier_bnn_federation``:
-same protocol (synthetic MNIST, 90 %-one-label heterogeneity, equal
-shards), with the data drawn from a numpy ``Generator``. Callers that
-need the reference's exact arrays pass them in as ``datas``/``test``
-(numpy dicts with ``x``/``y``).
+The port's twins of ``repro.models.paper.fixtures``: the same protocols
+(§4.1: synthetic MNIST, 90 %-one-label heterogeneity, equal shards; §4.2:
+a synthetic LDA corpus in equal document shards), with the data drawn
+from a numpy ``Generator``. Callers that need the reference's exact
+arrays pass them in: ``datas``/``test`` (numpy dicts with ``x``/``y``)
+for the BNN, ``counts`` (the (docs, vocab) matrix) for ProdLDA.
 """
 from __future__ import annotations
 
@@ -14,8 +15,13 @@ import numpy as np
 import torch
 
 from repro_torch.convert import datas_from_numpy
-from repro_torch.data import heterogeneous_label_partition, make_synthetic_mnist
+from repro_torch.data import (
+    heterogeneous_label_partition,
+    make_lda_corpus,
+    make_synthetic_mnist,
+)
 from repro_torch.models.paper.hier_bnn import HierBNN, build_hier_bnn
+from repro_torch.models.paper.prodlda import ProdLDA, build_prodlda
 
 
 def hier_bnn_federation(
@@ -58,3 +64,31 @@ def bnn_posterior_accuracy(bnn: HierBNN, eta_G: dict, eta_L_stacked: dict,
         accs.append(float(bnn.accuracy(
             eta_G["mu"], eta_L_stacked["mu_bar"][j], test[j]["x"], test[j]["y"])))
     return float(np.mean(accs)), float(np.std(accs))
+
+
+def prodlda_federation(
+    seed: int,
+    num_silos: int,
+    *,
+    device: torch.device,
+    vocab_size: int = 300,
+    num_topics: int = 8,
+    docs_per_silo: int = 40,
+    counts: Optional[np.ndarray] = None,
+) -> Tuple[ProdLDA, List[dict], np.ndarray]:
+    """§4.2 protocol. Returns ``(lda, datas, counts)``: J silos of
+    ``docs_per_silo`` consecutive documents on ``device``, and the full
+    (docs, vocab) numpy matrix for coherence evaluation."""
+    if counts is None:
+        counts, _ = make_lda_corpus(
+            np.random.default_rng(seed), num_docs=num_silos * docs_per_silo,
+            vocab_size=vocab_size, num_topics=num_topics)
+    counts = np.asarray(counts)
+    if counts.shape != (num_silos * docs_per_silo, vocab_size):
+        raise ValueError(f"counts of shape {counts.shape} for {num_silos} silos of "
+                         f"{docs_per_silo} documents over {vocab_size} words")
+    lda = build_prodlda(vocab_size=vocab_size, num_topics=num_topics,
+                        docs_per_silo=docs_per_silo)
+    datas = [{"counts": counts[j * docs_per_silo:(j + 1) * docs_per_silo]}
+             for j in range(num_silos)]
+    return lda, datas_from_numpy(datas, device), counts

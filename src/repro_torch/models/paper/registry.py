@@ -4,18 +4,22 @@ Mirrors ``repro.models.paper.registry``: a name resolves to a builder
 ``build(seed, num_silos, *, device=None, **kwargs) -> ModelBundle`` that
 stages the problem, θ₀, J per-silo data dicts (tensors on ``device``)
 and N_j. Builders run on ``cuda`` unless ``device="cpu"`` is passed.
-``datas=`` (numpy silo dicts) replaces the generated data, so parity
-tests can stage the reference's arrays.
+The reference draws its data with ``jax.random``, the port with numpy,
+so each builder takes the data in their place and partitions them as
+the reference does, so parity tests can stage the reference's arrays:
+``datas=`` (numpy silo dicts) for ``hier_bnn``/``fedpop_bnn``/``glmm``,
+``train=``/``test=`` (``(x, y)`` numpy pairs) for ``multinomial`` and
+``hetero_mn``, ``counts=`` (the (docs, vocab) matrix) for ``prodlda``.
 
-Registered here: ``hier_bnn``, ``fedpop_bnn``, ``glmm`` and ``toy``. The
-other reference entries (multinomial, hetero_mn, prodlda) are not ported
-yet. :func:`apply_family_spec` swaps a staged bundle's families
-(``--global-family``/``--local-family``).
+Registered: every model of the reference registry — ``toy``,
+``hier_bnn``, ``fedpop_bnn``, ``glmm``, ``multinomial``, ``hetero_mn``
+and ``prodlda``. :func:`apply_family_spec` swaps a staged bundle's
+families (``--global-family``/``--local-family``).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, List, Optional, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -192,3 +196,112 @@ def _build_glmm(seed: int, num_silos: int, *, device=None, num_children: int = 1
     glmm = build_glmm(num_children_j=per_silo)
     return ModelBundle(problem=glmm.problem, theta0={}, datas=_float_tensors(datas, dev),
                        num_obs=[per_silo] * num_silos, eval_fn=None)
+
+
+Split = Tuple[np.ndarray, np.ndarray]  # (x (n, d) float32, y (n,) integer labels)
+
+
+def _mnist_splits(seed: int, num_train: int, num_test: int, in_dim: int,
+                  prototype_scale: float, noise_scale: float,
+                  train: Optional[Split], test: Optional[Split]) -> Tuple[Split, Split]:
+    """The synthetic-MNIST train/test pairs, or the given ones (both or neither)."""
+    from repro_torch.data import make_synthetic_mnist
+
+    if (train is None) != (test is None):
+        raise ValueError("pass both train= and test=, or neither")
+    if train is None:
+        tr, te = make_synthetic_mnist(
+            np.random.default_rng(seed), num_train, num_test, dim=in_dim,
+            prototype_scale=prototype_scale, noise_scale=noise_scale)
+        return (tr.x, tr.y), (te.x, te.y)
+    for name, (x, y) in (("train", train), ("test", test)):
+        if np.shape(x) != (len(y), in_dim):
+            raise ValueError(f"{name} x of shape {np.shape(x)} for {len(y)} labels "
+                             f"and in_dim {in_dim}")
+    return train, test
+
+
+def _multinomial_bundle(datas, num_obs, in_dim, train: Split, test: Split,
+                        device) -> ModelBundle:
+    """The multinomial model over staged silos; eval: posterior-mean accuracy
+    on the whole training set and on the test set."""
+    from repro_torch.convert import datas_from_numpy
+    from repro_torch.models.paper.multinomial import build_multinomial, init_theta
+
+    model = build_multinomial(in_dim=in_dim)
+    train_all, test_all = datas_from_numpy(
+        [{"x": train[0], "y": train[1]}, {"x": test[0], "y": test[1]}], device)
+
+    def eval_fn(server):
+        mu = server.eta_G["mu"]
+        return {"train_acc": float(model.accuracy(mu, train_all["x"], train_all["y"])),
+                "test_acc": float(model.accuracy(mu, test_all["x"], test_all["y"]))}
+
+    return ModelBundle(problem=model.problem, theta0=init_theta(device),
+                       datas=datas_from_numpy(datas, device), num_obs=num_obs,
+                       eval_fn=eval_fn)
+
+
+@register("hetero_mn",
+          "Multinomial regression under Dirichlet non-IID silos "
+          "(unequal N_j, label skew)")
+def _build_hetero_mn(seed: int, num_silos: int, *, device=None, n_total: int = 240,
+                     in_dim: int = 196, alpha: float = 0.5, min_per_silo: int = 2,
+                     prototype_scale: float = 0.6, noise_scale: float = 3.0,
+                     train: Optional[Split] = None,
+                     test: Optional[Split] = None) -> ModelBundle:
+    """The multinomial model over a Dirichlet(α) label partition (Hsu et
+    al., 2019): per-silo label skew AND unequal N_j. Ragged silos are padded
+    to the widest with a 0/1 row-weight ``w`` that the likelihood applies,
+    so padded rows add exactly nothing; ``num_obs`` holds the true N_j,
+    which SFVI-Avg's N/N_j rescale sees."""
+    from repro_torch.data import dirichlet_label_partition, pad_ragged_silos
+
+    dev = resolve_device(device)
+    train, test = _mnist_splits(seed, n_total, max(200, num_silos * 20), in_dim,
+                                prototype_scale, noise_scale, train, test)
+    x, y = train
+    parts = dirichlet_label_partition(np.random.default_rng(seed), y, num_silos,
+                                      alpha=alpha, min_per_silo=min_per_silo)
+    datas = pad_ragged_silos([{"x": x[p], "y": y[p]} for p in parts])
+    return _multinomial_bundle(datas, [len(p) for p in parts], in_dim, train, test, dev)
+
+
+@register("multinomial",
+          "Empirically-Bayesian multinomial regression (supplement S3.2)")
+def _build_multinomial(seed: int, num_silos: int, *, device=None, n_per: int = 60,
+                       in_dim: int = 196, prototype_scale: float = 0.6,
+                       noise_scale: float = 3.0, train: Optional[Split] = None,
+                       test: Optional[Split] = None) -> ModelBundle:
+    """IID equal silos of ``n_per`` samples (the benchmark smoke model)."""
+    from repro_torch.data import iid_partition
+
+    dev = resolve_device(device)
+    train, test = _mnist_splits(seed, num_silos * n_per, max(200, num_silos * 20), in_dim,
+                                prototype_scale, noise_scale, train, test)
+    x, y = train
+    parts = iid_partition(np.random.default_rng(seed), len(y), num_silos)
+    datas = [{"x": x[p], "y": y[p]} for p in parts]
+    return _multinomial_bundle(datas, [len(p) for p in parts], in_dim, train, test, dev)
+
+
+@register("prodlda", "Federated ProdLDA topic model on a synthetic corpus (§4.2)")
+def _build_prodlda(seed: int, num_silos: int, *, device=None,
+                   counts: Optional[np.ndarray] = None, **kwargs) -> ModelBundle:
+    """Equal document shards of an LDA corpus; eval: UMass coherence of the
+    posterior-mean topics (top 8 words), median and mean over topics."""
+    from repro_torch.models.paper.fixtures import prodlda_federation
+    from repro_torch.models.paper.prodlda import init_theta, umass_coherence
+
+    dev = resolve_device(device)
+    lda, datas, counts = prodlda_federation(seed, num_silos, device=dev, counts=counts,
+                                            **kwargs)
+
+    def eval_fn(server):
+        topics = lda.topics(server.eta_G["mu"]).cpu().numpy()
+        coh = umass_coherence(topics, counts, top_n=8)
+        return {"coherence_median": float(np.median(coh)),
+                "coherence_mean": float(np.mean(coh))}
+
+    return ModelBundle(problem=lda.problem, theta0=init_theta(dev), datas=datas,
+                       num_obs=[lda.docs_per_silo] * num_silos, eval_fn=eval_fn)

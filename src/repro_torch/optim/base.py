@@ -75,3 +75,24 @@ def scale(factor: float) -> GradientTransformation:
         return tree_map(lambda g: g * factor, grads), state
 
     return GradientTransformation(init, update)
+
+
+class ScaleByScheduleState(NamedTuple):
+    count: torch.Tensor  # int32 0-d: the number of updates taken
+
+
+def scale_by_schedule(schedule: Callable[[torch.Tensor], torch.Tensor]) -> GradientTransformation:
+    """Scale the updates by ``schedule(count)``, then count one step."""
+
+    def init(params):
+        leaves = tree_leaves(params)
+        device = leaves[0].device if leaves else None
+        return ScaleByScheduleState(count=torch.zeros((), dtype=torch.int32, device=device))
+
+    def update(grads, state, params=None):
+        del params
+        step_size = schedule(state.count)
+        updates = tree_map(lambda g: g * step_size, grads)
+        return updates, ScaleByScheduleState(count=state.count + 1)
+
+    return GradientTransformation(init, update)

@@ -76,3 +76,23 @@ def test_cli_toy_lowrank_family_flags_and_eval_line(capsys):
                      "--eta-mode", "param"]) == 0
     out = capsys.readouterr().out
     assert len(_EVAL_LINE.findall(out)) == 1 and "abs_error_vs_exact:" in out
+
+
+def test_cli_prodlda_and_multinomial_print_their_eval_lines(capsys):
+    """The paper's §4.2 and S3.2 models come from the registry: ProdLDA prints
+    its coherence, multinomial its accuracies; θ ≠ ∅ ships 2 more floats."""
+    assert cli.main(["--device", "cpu", "--model", "prodlda", "--model-kwargs",
+                     '{"vocab_size": 30, "num_topics": 4, "docs_per_silo": 6}',
+                     "--silos", "2", "--rounds", "1", "--local-steps", "2"]) == 0
+    out = capsys.readouterr().out
+    assert "== SFVI: prodlda" in out and "== SFVI-Avg: prodlda" in out
+    assert len(re.findall(r"^  coherence_median: -?\d+\.\d{3}$", out, re.M)) == 2
+    assert len(re.findall(r"^  coherence_mean: -?\d+\.\d{3}$", out, re.M)) == 2
+    # P = 2 x 120 + 2 floats: SFVI 2 steps x 2 silos x (968 up + 968 down)
+    assert "bytes/round: SFVI=7,744  SFVI-Avg=3,872" in out
+    assert cli.main(["--device", "cpu", "--model", "multinomial", "--model-kwargs",
+                     '{"n_per": 10, "in_dim": 16}', "--silos", "3", "--rounds", "1",
+                     "--local-steps", "2", "--algo", "sfvi_avg"]) == 0
+    out = capsys.readouterr().out
+    assert len(_EVAL_LINE.findall(out)) == 2
+    assert "train_acc:" in out and "test_acc:" in out
