@@ -91,7 +91,23 @@ non-zero):
        — SFVI K=25 3 rounds, SFVI-Avg K=50 2 rounds;
      each model's eval line (accuracy, coherence) after its runs;
      then 2 more rounds of each run under ``torch.profiler`` for the
-     device's busy and idle share. Then the backbone's serve path
+     device's busy and idle share. Then phase 3c, the experiment API
+     (``repro_torch.federated.api``, ``runtime.wire = "fused"``), the
+     counters set to 0 just before each run and read just after:
+       the smoke config's SFVI-Avg + DP (z 0.3, C 0.3) 25 rounds whole,
+       and as 12 rounds + ``save`` + ``Experiment.resume`` into a fresh
+       object + 13 rounds: every state leaf and the whole history
+       bit-identical to the whole run, 126,144 B a round, ε within 1e-4
+       of 289.2907; PVI and federated EP on the smoke config, 9 rounds
+       each (126,144 B, (1, 1) launches a round of (upload, combine));
+       hier_bnn at §4.1 width through the CLI's ``main``: SFVI-Avg +
+       int8 + trimmed (0.1), 4 rounds with ``--ckpt-dir`` and
+       ``--ckpt-every 2``, then ``--resume`` of the round-2 step in a
+       fresh ``main`` call, whose step-4 files must equal the whole
+       run's byte for byte; hier_bnn PVI 3 rounds; the GLMM + Cholesky
+       SFVI-Avg as 2 rounds + save/resume + 1, bit-identical, 100 root
+       launches a round. Each run prints its s/round, save and resume
+       ms, bytes and launches a round. Then the backbone's serve path
      (``repro_torch.launch.serve_backbone.serve``) at full width in bf16,
      with the flash-attention, GLA and RMSNorm launch counters set to 0
      just before each run and read just after (every bf16 flash and GLA
@@ -1555,6 +1571,268 @@ def main_path(np, torch, wire, reparam):
 
 
 # ---------------------------------------------------------------------------
+# Phase 3c: the experiment API (spec -> build -> run -> save -> resume)
+# ---------------------------------------------------------------------------
+
+STATE_KEYS = ("theta", "eta_G", "eta_L", "opt_server", "opt_local", "strategy")
+HIER_KWARGS = {"in_dim": 784, "hidden": 64, "train_per_silo": 200}
+
+
+def api_spec(model, kwargs, algo, J, rounds, K, global_family=None, **scenario):
+    """An ``ExperimentSpec`` on the fused wire (Adam, lr 0.02, seed 0)."""
+    from repro_torch.core.family import FamilySpec
+    from repro_torch.federated.api import (
+        ExperimentSpec,
+        ModelSpec,
+        OptimizerSpec,
+        RuntimeSpec,
+    )
+    from repro_torch.federated.scheduler import Scenario
+
+    gfam = None if global_family is None else FamilySpec(global_family)
+    return ExperimentSpec(
+        model=ModelSpec(model, kwargs, global_family=gfam),
+        scenario=Scenario(algorithm=algo, **scenario), num_silos=J, rounds=rounds,
+        local_steps=K, server_opt=OptimizerSpec("adam", 2e-2), seed=0,
+        runtime=RuntimeSpec(wire="fused"))
+
+
+def counted(torch, wire, reparam, fn):
+    """``fn()`` with the launch counters set to 0 just before and read just
+    after: (its result, the wire kernels' counts). No round calls the
+    reparam kernels."""
+    sync(torch)
+    wire.reset_launches()
+    reparam.reset_launches()
+    out = fn()
+    sync(torch)
+    assert not any(reparam.LAUNCHES.values()), reparam.LAUNCHES
+    return out, {k: wire.LAUNCHES[k] for k in KERNEL_COUNTS}
+
+
+def api_rounds(torch, wire, reparam, exp, rounds):
+    """``exp.run(rounds)`` counted: (this call's history, counts, s a round)."""
+    before = {k: len(v) for k, v in exp.history.items()}
+    stamps = []
+    t0 = time.perf_counter()
+    h, counts = counted(torch, wire, reparam, lambda: exp.run(
+        rounds, callback=lambda r, m: stamps.append(time.perf_counter())))
+    chunk = {k: v[before.get(k, 0):] for k, v in h.items()}
+    return chunk, counts, [b - a for a, b in zip([t0] + stamps[:-1], stamps)]
+
+
+def check_launches(label, counts, per_round, rounds):
+    want = {k: n * rounds for k, n in zip(KERNEL_COUNTS, per_round, strict=True)}
+    assert counts == want, (label, counts, want)
+
+
+def state_diff(torch, a, b) -> list:
+    """The state leaves (group, index, max |a - b|) where two Servers differ
+    in value or dtype; empty when they are bit-identical."""
+    from repro_torch.tree import tree_leaves
+
+    out = []
+    for k in STATE_KEYS:
+        la, lb = tree_leaves(a.state[k]), tree_leaves(b.state[k])
+        assert len(la) == len(lb), k
+        for i, (x, y) in enumerate(zip(la, lb, strict=True)):
+            if x.dtype != y.dtype or not torch.equal(x, y):
+                out.append((k, i, float((x.double() - y.double()).abs().max())))
+    return out
+
+
+class Patched:
+    """Wrap ``owner.name`` while the block runs: each call's wall seconds go
+    to ``sink`` (``classmethod`` kept for ``Experiment.resume``)."""
+
+    def __init__(self, owner, name, sink):
+        self.owner, self.name, self.sink = owner, name, sink
+        self.orig = owner.__dict__[name]
+
+    def __enter__(self):
+        orig, sink = self.orig, self.sink
+        fn = orig.__func__ if isinstance(orig, classmethod) else orig
+
+        def timed(*a, **k):
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            sink.append(time.perf_counter() - t0)
+            return out
+
+        setattr(self.owner, self.name, classmethod(timed) if isinstance(orig, classmethod)
+                else timed)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.owner, self.name, self.orig)
+
+
+def api_line(label, rounds, round_s, bytes_round, counts, save_s=(), resume_s=(), **extra):
+    row = {"api_run": label, "rounds": rounds,
+           "s_per_round_median_after_first": statistics.median(round_s[1:]),
+           "save_ms": [t * 1e3 for t in save_s], "resume_ms": [t * 1e3 for t in resume_s],
+           "bytes_per_round": bytes_round,
+           "launches_per_round": {k: v / rounds for k, v in counts.items()}, **extra}
+    print(json.dumps(row), flush=True)
+
+
+def api_save_resume(torch, wire, reparam, label, spec, split, per_round, want_total,
+                    work, want_eps=None):
+    """``spec`` run whole, and run as ``split`` rounds + save + resume into a
+    fresh object + the rest: every state leaf and the whole history must be
+    bit-identical. Returns the summed launch counts of the three runs."""
+    from repro_torch.federated.api import Experiment, build
+
+    R = spec.rounds
+    full = build(spec, device=DEVICE)
+    h_full, c_full, s_full = api_rounds(torch, wire, reparam, full, R)
+    part = build(spec, device=DEVICE)
+    h1, c1, s1 = api_rounds(torch, wire, reparam, part, split)
+    t0 = time.perf_counter()
+    part.save(str(work))
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res = Experiment.resume(str(work), device=DEVICE)
+    resume_s = time.perf_counter() - t0
+    assert res.round == split and res.server.wire == "fused", label
+    h2, c2, s2 = api_rounds(torch, wire, reparam, res, R - split)
+    totals = [u + d for u, d in zip(h_full["bytes_up"], h_full["bytes_down"], strict=True)]
+    assert totals == [want_total] * R, (label, totals)
+    assert all(math.isfinite(e) for e in h_full["elbo_trace"]), label
+    if want_eps is not None:
+        assert abs(h_full["epsilon"][-1] - want_eps) <= 1e-4, (label, h_full["epsilon"][-1])
+    check_launches(label, c_full, per_round, R)
+    check_launches(label + " before save", c1, per_round, split)
+    check_launches(label + " resumed", c2, per_round, R - split)
+    diff = state_diff(torch, full.server, res.server)
+    hist = [k for k in h_full if h_full[k] != h1[k] + h2[k]]
+    print(json.dumps({"api_resume": label, "state_leaves_differing": diff,
+                      "history_keys_differing": hist,
+                      "rounds_full": h_full.get("elbo"), "rounds_resumed": h2.get("elbo")}),
+          flush=True)
+    assert not diff and not hist, f"{label}: resumed run is not bit-identical"
+    assert res.comm.state_dict() == full.comm.state_dict(), label
+    api_line(label, R, s_full, want_total, c_full, [save_s], [resume_s],
+             split=split, s_per_round_resumed=s2, epsilon=h_full.get("epsilon", [None])[-1])
+    return {k: c_full[k] + c1[k] + c2[k] for k in KERNEL_COUNTS}
+
+
+def api_plain(torch, wire, reparam, label, spec, per_round, want_total):
+    """``spec`` run whole through the API: bytes, a finite ELBO, launches."""
+    from repro_torch.federated.api import build
+
+    exp = build(spec, device=DEVICE)
+    h, counts, round_s = api_rounds(torch, wire, reparam, exp, spec.rounds)
+    totals = [u + d for u, d in zip(h["bytes_up"], h["bytes_down"], strict=True)]
+    assert totals == [want_total] * spec.rounds, (label, totals)
+    assert all(math.isfinite(e) for e in h["elbo_trace"]), label
+    check_launches(label, counts, per_round, spec.rounds)
+    api_line(label, spec.rounds, round_s, want_total, counts, elbo=h["elbo"])
+    return counts
+
+
+def hier_bnn_cli_resume(torch, wire, reparam, work):
+    """hier_bnn at §4.1 width through the CLI's ``main``: SFVI-Avg + int8 +
+    trimmed (0.1), 4 rounds with ``--ckpt-every 2``; then ``--resume`` of
+    the round-2 step in a fresh ``main`` call. The resumed run's step-4
+    files must equal the uninterrupted run's byte for byte."""
+    from repro_torch.federated import api
+    from repro_torch.federated import run as cli
+
+    J, K, P = MAIN_J, 4, MAIN_P
+    argv = ["--device", DEVICE, "--model", "hier_bnn", "--model-kwargs", json.dumps(HIER_KWARGS),
+            "--silos", str(J), "--rounds", "4", "--local-steps", str(K), "--algo",
+            "sfvi_avg", "--compress", "int8", "--aggregator", "trimmed", "--trim-frac", "0.1"]
+    full, part = work / "full", work / "part"
+    stamps, save_s, resume_s = [], [], []
+    log_round = cli._log_round
+
+    def stamped(total):
+        log = log_round(total)
+
+        def cb(r, m):
+            stamps.append(time.perf_counter())
+            log(r, m)
+        return cb
+
+    cli._log_round = stamped
+    try:
+        with Patched(api.Experiment, "save", save_s), \
+                Patched(api.Experiment, "resume", resume_s):
+            t0 = time.perf_counter()
+            rc, c_full = counted(torch, wire, reparam, lambda: cli.main(
+                [*argv, "--ckpt-dir", str(full), "--ckpt-every", "2"]))
+            wall_full = time.perf_counter() - t0
+            assert rc == 0
+            round_s = [b - a for a, b in zip(stamps[:-1], stamps[1:])]
+            part.mkdir()
+            for f in full.iterdir():
+                if not f.name.startswith("step_00000004"):
+                    shutil.copy2(f, part / f.name)
+            t0 = time.perf_counter()
+            rc, c_res = counted(torch, wire, reparam,
+                                lambda: cli.main(["--device", DEVICE, "--resume", str(part)]))
+            wall_res = time.perf_counter() - t0
+            assert rc == 0
+    finally:
+        cli._log_round = log_round
+    label = "hier_bnn CLI sfvi_avg+int8+trimmed"
+    check_launches(label, c_full, (1, 2, 0, 0), 4)
+    check_launches(label + " resumed", c_res, (1, 2, 0, 0), 2)
+    files = sorted(f.name for f in full.iterdir() if f.name.startswith("step_00000004"))
+    assert len(files) == 2 + J, files
+    differ = [f for f in files if (full / f).read_bytes() != (part / f).read_bytes()]
+    print(json.dumps({"api_resume": label, "step_files": len(files),
+                      "files_differing": differ}), flush=True)
+    assert not differ, f"{label}: resumed checkpoint differs from the uninterrupted one"
+    meta = json.loads((full / "step_00000004.meta.json").read_text())
+    bytes_round = (meta["comm"]["bytes_up"] + meta["comm"]["bytes_down"]) / meta["comm"]["rounds"]
+    assert bytes_round == J * (P + 4) + J * 4 * P, bytes_round
+    api_line(label, 4, [0.0] + round_s[:3], bytes_round, c_full, save_s, resume_s,
+             wall_s=wall_full, resume_call_wall_s=wall_res)
+    return {k: c_full[k] + c_res[k] for k in KERNEL_COUNTS}
+
+
+def experiment_api_runs(torch, wire, reparam):
+    """Phase 3c: every run through ``repro_torch.federated.api`` on the fused
+    wire; returns the summed launch counts."""
+    totals = {k: 0 for k in KERNEL_COUNTS}
+
+    def add(counts):
+        for k in totals:
+            totals[k] += counts[k]
+
+    work = ROOT / "build" / "phase3c"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    try:
+        smoke = {"n_per": SMOKE_N, "in_dim": SMOKE_DIM}
+        Js, Ks = SMOKE_J, SMOKE_K
+        add(api_save_resume(
+            torch, wire, reparam, "smoke SFVI-Avg dp(z=0.3,C=0.3)",
+            api_spec("multinomial", smoke, "sfvi_avg", Js, SMOKE_ROUNDS, Ks,
+                     dp_noise=0.3, dp_clip=0.3),
+            12, (1, 3, 0, 0), 126_144, work / "smoke", want_eps=289.2907))
+        for algo in ("pvi", "fed_ep"):
+            add(api_plain(torch, wire, reparam, f"smoke {algo}",
+                          api_spec("multinomial", smoke, algo, Js, 9, Ks), (1, 1, 0, 0),
+                          126_144))
+        add(hier_bnn_cli_resume(torch, wire, reparam, work / "hier_bnn"))
+        P = MAIN_P
+        add(api_plain(torch, wire, reparam, "hier_bnn pvi",
+                      api_spec("hier_bnn", HIER_KWARGS, "pvi", MAIN_J, 3, 4), (1, 1, 0, 0),
+                      2 * MAIN_J * 4 * P))
+        add(api_save_resume(
+            torch, wire, reparam, "glmm+cholesky sfvi_avg",
+            api_spec("glmm", {"num_children": GLMM_CHILDREN}, "sfvi_avg", GLMM_J, 3, GLMM_K,
+                     global_family="cholesky"),
+            2, (1, 1, 0, NS_ROOTS_PER_MERGE), 2 * GLMM_J * 4 * 20, work / "glmm"))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return totals
+
+
+# ---------------------------------------------------------------------------
 # Phase 3b: the backbone's serve path at full width
 # ---------------------------------------------------------------------------
 
@@ -2210,6 +2488,12 @@ def main(timings_only: bool = False) -> int:
                           "median_after_first": statistics.median(round_s[1:])}),
               flush=True)
         print(json.dumps({"profile": label, **profiles[label]}), flush=True)
+    print("phase 3c: the experiment API (spec, build, run, save, resume) on the fused wire",
+          flush=True)
+    api_totals = experiment_api_runs(torch, wire, reparam)
+    for k in totals:
+        totals[k] += api_totals[k]
+    lap("3c experiment API")
     print("phase 3b: backbone serve runs at full width (bf16)", flush=True)
     bb_totals, serve_results = serve_runs(torch, [attention, gla, rmsnorm], [wire, reparam])
     for res in serve_results:

@@ -1,0 +1,513 @@
+"""One declarative experiment API: spec → build → run → save → resume.
+
+The port of ``repro.federated.api``, for its synchronous single-device
+path:
+
+  * :class:`ExperimentSpec` — a frozen dataclass tree (model reference +
+    kwargs, silos, rounds × local steps, optimizers, a
+    :class:`~repro_torch.federated.scheduler.Scenario`, an optional
+    :class:`~repro_torch.federated.strategy.StrategySpec`, eval cadence,
+    seeds, the runtime topology, an optional population). Its
+    ``to_dict()`` is the reference's key for key, so the two packages
+    read and write the same spec JSON.
+  * :func:`build` — resolves the model through the port's registry and
+    assembles the :class:`~repro_torch.federated.runtime.Server`,
+    scheduler and privacy policy into an :class:`Experiment`.
+  * :class:`Experiment` — runs rounds, evaluates, and checkpoints in the
+    reference's layout through :class:`~repro_torch.checkpoint.CheckpointManager`:
+    ``spec.json``; ``step_NNNNNNNN.msgpack`` with θ, η_G and the server
+    optimizer; one ``step_NNNNNNNN.silo_JJJJ.msgpack`` per silo with
+    η_{L_j} and its optimizer (when Z_L ≠ ∅) and the strategy's site
+    state (PVI, federated EP); ``step_NNNNNNNN.meta.json`` with the round,
+    the communication meter, the wire layout and the float64 RDP ledger.
+    Every random stream of the runtime (the draws, the participation
+    masks, the DP noise) is a function of (seed, absolute round), so a
+    resumed run replays the uninterrupted run's rounds bit for bit, and a
+    directory saved by either package resumes in the other.
+
+What the port does not run yet is refused at :func:`build`, naming the
+ROADMAP item that brings it: more than one device or process in
+``runtime.mesh`` (Queue 1 item 5), ``runtime.sanitize`` (JAX trace
+machinery, Queue 1 item 6), ``scenario.async_cfg`` and ``population``
+(Queue 1 item 4). ``runtime.wire == "legacy"`` (the reference's per-leaf
+wire) is not ported (Queue 1 item 6).
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+from typing import Any, Callable, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.checkpoint import CheckpointManager
+from repro_torch.core.family import FamilySpec
+from repro_torch.federated.population import PopulationSpec
+from repro_torch.federated.scheduler import RoundScheduler, Scenario
+from repro_torch.federated.strategy import StrategySpec
+from repro_torch.launch.mesh import MeshSpec
+from repro_torch.tree import tree_leaves, tree_map
+
+PyTree = Any
+
+_SPEC_FILE = "spec.json"
+_SERVER_KEYS = ("theta", "eta_G", "opt_server")
+
+
+# ---------------------------------------------------------------------------
+# Spec tree
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class OptimizerSpec:
+    """Declarative optimizer: ``"adam"``, ``"adamw"`` or ``"sgd"`` with its
+    learning rate and JSON-native extra kwargs (betas, weight decay, ...)."""
+
+    name: str = "adam"
+    learning_rate: float = 1e-2
+    kwargs: Dict[str, Any] = dataclasses.field(default_factory=dict)
+
+    def build(self):
+        """The :class:`~repro_torch.optim.base.GradientTransformation`."""
+        from repro_torch import optim
+
+        factories = {"adam": optim.adam, "adamw": optim.adamw, "sgd": optim.sgd}
+        if self.name not in factories:
+            raise ValueError(f"unknown optimizer {self.name!r} (adam/adamw/sgd)")
+        return factories[self.name](self.learning_rate, **self.kwargs)
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> OptimizerSpec:
+        return cls(name=d.get("name", "adam"), learning_rate=d.get("learning_rate", 1e-2),
+                   kwargs=dict(d.get("kwargs", {})))
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelSpec:
+    """A registered model's name, its JSON-native build kwargs, and optional
+    :class:`~repro_torch.core.family.FamilySpec` overrides of its global and
+    local variational families (``None`` keeps the model's own)."""
+
+    name: str
+    kwargs: Dict[str, Any] = dataclasses.field(default_factory=dict)
+    global_family: Optional[FamilySpec] = None
+    local_family: Optional[FamilySpec] = None
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> ModelSpec:
+        return cls(
+            name=d["name"],
+            kwargs=dict(d.get("kwargs", {})),
+            global_family=(FamilySpec.from_dict(d["global_family"])
+                           if d.get("global_family") is not None else None),
+            local_family=(FamilySpec.from_dict(d["local_family"])
+                          if d.get("local_family") is not None else None),
+        )
+
+
+@dataclasses.dataclass(frozen=True)
+class RuntimeSpec:
+    """Execution topology: the wire layout (``"flat"``, the default as in the
+    reference; ``"fused"``, the CUDA kernels; ``"legacy"``, not ported), the
+    federated mesh (:class:`~repro_torch.launch.mesh.MeshSpec`) and the
+    reference's sanitizer default."""
+
+    wire: str = "flat"
+    mesh: MeshSpec = MeshSpec()
+    sanitize: bool = False
+
+    def __post_init__(self):
+        if self.wire not in ("flat", "fused", "legacy"):
+            raise ValueError(f"unknown wire layout {self.wire!r} (flat/fused/legacy)")
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> RuntimeSpec:
+        return cls(wire=d.get("wire", "flat"), mesh=MeshSpec.from_dict(d.get("mesh") or {}),
+                   sanitize=d.get("sanitize", False))
+
+
+@dataclasses.dataclass(frozen=True)
+class ExperimentSpec:
+    """The complete, serializable description of one federated run.
+
+    Fields as the reference's: ``model``; ``scenario`` (algorithm,
+    participation, stragglers, compression, aggregation, DP); ``strategy``
+    (hyperparameters; its name must match ``scenario.algorithm``);
+    ``num_silos``; ``rounds`` (the budget :meth:`Experiment.run` runs by
+    default); ``local_steps``; ``server_opt``; ``local_opt`` (None mirrors
+    ``server_opt``); ``eta_mode`` (``"barycenter"`` or ``"param"``);
+    ``eval_every`` (0: no cadence); ``seed``; ``data_seed`` (None mirrors
+    ``seed``); ``runtime``; ``population``.
+    """
+
+    model: ModelSpec
+    scenario: Scenario = Scenario()
+    strategy: Optional[StrategySpec] = None
+    num_silos: int = 4
+    rounds: int = 10
+    local_steps: int = 1
+    server_opt: OptimizerSpec = OptimizerSpec()
+    local_opt: Optional[OptimizerSpec] = None
+    eta_mode: str = "barycenter"
+    eval_every: int = 0
+    seed: int = 0
+    data_seed: Optional[int] = None
+    runtime: RuntimeSpec = RuntimeSpec()
+    population: Optional[PopulationSpec] = None
+
+    @property
+    def algorithm(self) -> str:
+        """The sync cadence, carried by the scenario."""
+        return self.scenario.algorithm
+
+    @property
+    def name(self) -> str:
+        """Human-readable label: model + the scenario's knob summary."""
+        return f"{self.model.name} {self.scenario.name}"
+
+    def to_dict(self) -> Dict[str, Any]:
+        """Plain-dict form, JSON-ready (nested dataclasses flattened)."""
+        return dataclasses.asdict(self)
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> ExperimentSpec:
+        """Inverse of :meth:`to_dict`: ``from_dict(to_dict(s)) == s``."""
+        return cls(
+            model=ModelSpec.from_dict(d["model"]),
+            scenario=Scenario.from_dict(d.get("scenario", {})),
+            strategy=(StrategySpec.from_dict(d["strategy"])
+                      if d.get("strategy") is not None else None),
+            num_silos=d.get("num_silos", 4),
+            rounds=d.get("rounds", 10),
+            local_steps=d.get("local_steps", 1),
+            server_opt=OptimizerSpec.from_dict(d.get("server_opt", {})),
+            local_opt=(OptimizerSpec.from_dict(d["local_opt"])
+                       if d.get("local_opt") is not None else None),
+            eta_mode=d.get("eta_mode", "barycenter"),
+            eval_every=d.get("eval_every", 0),
+            seed=d.get("seed", 0),
+            data_seed=d.get("data_seed"),
+            runtime=RuntimeSpec.from_dict(d.get("runtime") or {}),
+            population=(PopulationSpec.from_dict(d["population"])
+                        if d.get("population") is not None else None),
+        )
+
+    def to_json(self, indent: int = 2) -> str:
+        """JSON text of :meth:`to_dict` (what ``--dump-spec`` prints)."""
+        return json.dumps(self.to_dict(), indent=indent)
+
+    @classmethod
+    def from_json(cls, text: str) -> ExperimentSpec:
+        return cls.from_dict(json.loads(text))
+
+    def save(self, path: str) -> None:
+        """Write the spec as JSON (atomically) to ``path``."""
+        tmp = path + ".tmp"
+        with open(tmp, "w") as f:
+            f.write(self.to_json() + "\n")
+        os.replace(tmp, path)
+
+    @classmethod
+    def load(cls, path: str) -> ExperimentSpec:
+        with open(path) as f:
+            return cls.from_json(f.read())
+
+
+# ---------------------------------------------------------------------------
+# build: spec -> Experiment
+# ---------------------------------------------------------------------------
+
+
+def _refuse_unported(spec: ExperimentSpec, wire: str) -> None:
+    """Raise for what the port does not run yet, naming its ROADMAP item."""
+    if wire == "legacy":
+        raise ValueError(
+            "runtime.wire='legacy' (the reference's per-leaf wire) is not ported "
+            "(ROADMAP Queue 1 item 6); use 'flat' or 'fused'")
+    mesh = spec.runtime.mesh
+    if not mesh.single_device:
+        raise NotImplementedError(
+            f"runtime.mesh={mesh} asks for more than one device or process; the "
+            "multi-GPU runtime is ROADMAP Queue 1 item 5")
+    if spec.runtime.sanitize:
+        raise NotImplementedError(
+            "runtime.sanitize is the reference's JAX trace machinery, left "
+            "unported (ROADMAP Queue 1 item 6)")
+    if spec.scenario.async_cfg is not None:
+        raise NotImplementedError(
+            "scenario.async_cfg: buffered-async execution is ROADMAP Queue 1 item 4")
+    if spec.population is not None:
+        raise NotImplementedError(
+            "population: dynamic silo populations are ROADMAP Queue 1 item 4")
+
+
+def build(spec: ExperimentSpec, bundle=None, *, device=None) -> Experiment:
+    """Assemble the runtime for ``spec`` on ``device`` (default ``cuda``).
+
+    Resolves the model through the registry unless a pre-staged ``bundle``
+    is given (the CLI and the parity tests stage one and share it), applies
+    the spec's family overrides, and builds optimizers, aggregation,
+    compression and the privacy policy from the spec.
+    """
+    return _build(spec, bundle, spec.runtime.wire, device)
+
+
+def _build(spec: ExperimentSpec, bundle, wire: str, device) -> Experiment:
+    from repro_torch.device import generator, resolve_device
+    from repro_torch.federated.runtime import Server
+    from repro_torch.models.paper.registry import apply_family_spec, get_model
+
+    spec.scenario.validate(spec.num_silos)
+    strat_spec = (spec.strategy if spec.strategy is not None
+                  else StrategySpec(spec.scenario.algorithm))
+    if strat_spec.name != spec.scenario.algorithm:
+        raise ValueError(
+            f"spec.strategy names {strat_spec.name!r} but scenario.algorithm is "
+            f"{spec.scenario.algorithm!r}; they must agree (the scenario label "
+            "drives scheduling/validation, the StrategySpec only adds "
+            "hyperparameters)")
+    strategy = strat_spec.build()
+    _refuse_unported(spec, wire)
+    device = resolve_device(device)
+    if bundle is None:
+        data_seed = spec.data_seed if spec.data_seed is not None else spec.seed
+        bundle = get_model(spec.model.name).build(
+            data_seed, spec.num_silos, device=device, **spec.model.kwargs)
+    if len(bundle.datas) != spec.num_silos:
+        raise ValueError(
+            f"bundle stages {len(bundle.datas)} silos, spec.num_silos is {spec.num_silos}")
+    bundle = apply_family_spec(bundle, spec.model.global_family, spec.model.local_family)
+    problem = bundle.problem
+    has_local = problem.model.has_local
+    local_spec = spec.local_opt if spec.local_opt is not None else spec.server_opt
+    server = Server(
+        problem, bundle.datas, bundle.theta0,
+        problem.global_family.init(generator(spec.seed, device)),
+        num_obs=bundle.num_obs,
+        server_opt=spec.server_opt.build(),
+        local_opt=local_spec.build() if has_local else None,
+        aggregator=spec.scenario.make_aggregator(),
+        compressor=spec.scenario.compressor(),
+        eta_mode=spec.eta_mode,
+        wire=wire,
+        privacy=spec.scenario.privacy(),
+        seed=spec.seed,
+        strategy=strategy,
+        device=device,
+    )
+    return Experiment(spec, bundle, server, spec.scenario.scheduler(spec.num_silos,
+                                                                    seed=spec.seed))
+
+
+# ---------------------------------------------------------------------------
+# Experiment: run / evaluate / save / resume
+# ---------------------------------------------------------------------------
+
+
+class Experiment:
+    """A built federated run: owns the Server, scheduler and round index.
+
+    Construct through :func:`build` (or :meth:`resume`); drive with
+    :meth:`run`. ``history`` accumulates across calls; ``round`` is the
+    absolute number of rounds completed so far.
+    """
+
+    def __init__(self, spec: ExperimentSpec, bundle, server, scheduler: RoundScheduler):
+        self.spec = spec
+        self.bundle = bundle
+        self.server = server
+        self.scheduler = scheduler
+        self.round = 0
+        self.history: Dict[str, list] = {}
+
+    @property
+    def theta(self) -> PyTree:
+        return self.server.theta
+
+    @property
+    def eta_G(self) -> PyTree:
+        return self.server.eta_G
+
+    @property
+    def eta_L(self) -> PyTree:
+        return self.server.eta_L
+
+    @property
+    def comm(self):
+        return self.server.comm
+
+    @property
+    def accountant(self):
+        return self.server.accountant
+
+    @property
+    def remaining_rounds(self) -> int:
+        return max(self.spec.rounds - self.round, 0)
+
+    def warm_start(self, theta: Optional[PyTree] = None,
+                   eta_G: Optional[PyTree] = None) -> Experiment:
+        """Override the initial (θ, η_G), e.g. from a previous fit; the
+        optimizer moments keep their fresh init."""
+        if theta is not None:
+            self.server.state["theta"] = theta
+        if eta_G is not None:
+            self.server.state["eta_G"] = eta_G
+        return self
+
+    def run(self, rounds: Optional[int] = None,
+            callback: Optional[Callable[[int, dict], None]] = None,
+            draws=None) -> Dict[str, list]:
+        """Advance ``rounds`` rounds (default: the spec's remaining budget).
+
+        ``callback(r, metrics)`` fires each round with the absolute round
+        index, after ``self.round`` is brought up to date (so a callback may
+        :meth:`save` mid-run); with ``eval_every`` the registry's eval
+        metrics join the round's metrics and ``history["eval"]``. ``draws``
+        injects the randomness (``Server.run``).
+        """
+        n = self.remaining_rounds if rounds is None else rounds
+        if n <= 0:
+            return self.history
+        spec = self.spec
+        start = self.round
+
+        def cb(r: int, metrics: dict) -> None:
+            self.round = r + 1
+            if (spec.eval_every and self.bundle.eval_fn is not None
+                    and (r + 1) % spec.eval_every == 0):
+                scores = self.bundle.eval_fn(self.server)
+                metrics = dict(metrics, **scores)
+                self.history.setdefault("eval", []).append({"round": r + 1, **scores})
+            if callback is not None:
+                callback(r, metrics)
+
+        chunk = self.server.run(n, local_steps=spec.local_steps, scheduler=self.scheduler,
+                                callback=cb, start_round=start, draws=draws)
+        for k, v in chunk.items():
+            self.history.setdefault(k, []).extend(v)
+        self.round = start + n
+        return self.history
+
+    def evaluate(self) -> Dict[str, float]:
+        """The registry's eval hook on the current state ({} if none)."""
+        if self.bundle.eval_fn is None:
+            return {}
+        return dict(self.bundle.eval_fn(self.server))
+
+    # -- checkpointing ------------------------------------------------------
+
+    def _meta_dict(self) -> Dict[str, Any]:
+        meta: Dict[str, Any] = {
+            "round": self.round,
+            "comm": self.comm.state_dict(),
+            # DP noise and int8 scales depend on the layout: a resume
+            # rebuilds with the saved one.
+            "wire": self.server.wire,
+        }
+        if self.accountant is not None:
+            acct = self.accountant.state_dict()
+            # JSON floats round-trip the float64 ledger exactly.
+            meta["acct"] = {"rdp": [float(x) for x in np.asarray(acct["rdp"])],
+                            "steps": int(acct["steps"])}
+        return meta
+
+    @staticmethod
+    def _meta_path(directory: str, step: int) -> str:
+        return os.path.join(directory, f"step_{step:08d}.meta.json")
+
+    @staticmethod
+    def _silo_state_tree(state: Dict[str, Any]) -> Dict[str, Any]:
+        """Every stacked (J, ...) state group with leaves: η_{L_j} and its
+        optimizer when Z_L ≠ ∅, the strategy's per-silo state when it
+        keeps one."""
+        silo_state: Dict[str, Any] = {}
+        if tree_leaves(state["eta_L"]):
+            silo_state["eta_L"] = state["eta_L"]
+            silo_state["opt_local"] = state["opt_local"]
+        if tree_leaves(state.get("strategy", {})):
+            silo_state["strategy"] = state["strategy"]
+        return silo_state
+
+    def save(self, directory: str, keep: int = 3) -> str:
+        """Persist the full round state under ``directory`` (the module
+        docstring's layout; the ``keep`` newest steps are retained).
+        Returns the directory."""
+        os.makedirs(directory, exist_ok=True)
+        mgr = CheckpointManager(directory, keep=keep)
+        state = self.server.state
+        self.spec.save(os.path.join(directory, _SPEC_FILE))
+        mgr.save(self.round, {k: state[k] for k in _SERVER_KEYS})
+        silo_state = self._silo_state_tree(state)
+        for j in range(self.server.J if silo_state else 0):
+            mgr.save(self.round, tree_map(lambda x: x[j], silo_state),
+                     shard=f"silo_{j:04d}")
+        path = self._meta_path(directory, self.round)
+        with open(path + ".tmp", "w") as f:
+            json.dump(self._meta_dict(), f)
+        os.replace(path + ".tmp", path)
+        # The JSON sidecars keep the msgpack files' retention.
+        live = set(mgr.steps())
+        for fn in os.listdir(directory):
+            if fn.startswith("step_") and fn.endswith(".meta.json"):
+                s = fn[len("step_"):-len(".meta.json")]
+                if s.isdigit() and int(s) not in live:
+                    os.remove(os.path.join(directory, fn))
+        return directory
+
+    @classmethod
+    def resume(cls, directory: str, spec: Optional[ExperimentSpec] = None,
+               step: Optional[int] = None, bundle=None, *, device=None) -> Experiment:
+        """Rebuild from ``directory`` and restore the saved round state.
+
+        Reads ``spec.json`` (unless ``spec`` overrides it), rebuilds with the
+        checkpoint's wire layout (the registry re-stages the data from the
+        spec's seed, unless a ``bundle`` is given), then restores θ, η_G,
+        the stacked silo state, both optimizers, the communication meter,
+        the RDP ledger and the round index of the latest (or ``step``)
+        checkpoint. A silo with no shard on disk keeps its fresh init.
+        """
+        if spec is None:
+            spec = ExperimentSpec.load(os.path.join(directory, _SPEC_FILE))
+        mgr = CheckpointManager(directory)
+        if step is None:
+            step = mgr.latest_step()
+        if step is None:
+            raise FileNotFoundError(f"no checkpoints under {directory!r}")
+        with open(cls._meta_path(directory, step)) as f:
+            meta = json.load(f)
+        exp = _build(spec, bundle, meta.get("wire", spec.runtime.wire), device)
+        state = exp.server.state
+        restored = mgr.restore(step, {k: state[k] for k in _SERVER_KEYS})
+        state.update(restored)
+        silo_like = cls._silo_state_tree(state)
+        if silo_like:
+            rows = []
+            for j in range(exp.server.J):
+                row = tree_map(lambda x, jj=j: x[jj], silo_like)
+                if mgr.has(step, shard=f"silo_{j:04d}"):
+                    row = mgr.restore(step, row, shard=f"silo_{j:04d}")
+                rows.append(row)
+            state.update(tree_map(lambda *xs: torch.stack(xs), *rows))
+        exp.round = int(meta["round"])
+        exp.comm.load_state(meta["comm"])
+        if exp.accountant is not None and "acct" in meta:
+            exp.accountant.load_state({"rdp": np.asarray(meta["acct"]["rdp"], np.float64),
+                                       "steps": int(meta["acct"]["steps"])})
+        return exp
+
+
+def run_spec(spec: ExperimentSpec,
+             callback: Optional[Callable[[int, dict], None]] = None, *,
+             device=None) -> Experiment:
+    """One-shot convenience: ``build(spec)`` then run the full budget."""
+    exp = build(spec, device=device)
+    exp.run(callback=callback)
+    return exp
+
+
+def scenario_specs(base: ExperimentSpec, scenarios: List[Scenario]) -> List[ExperimentSpec]:
+    """Cross one base spec with a scenario list (the ``--sweep`` expansion)."""
+    return [dataclasses.replace(base, scenario=sc) for sc in scenarios]

@@ -6,7 +6,7 @@ bytes (what each silo ships), computed from shapes and dtypes only.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
+from typing import Any, Dict
 
 import numpy as np
 import torch
@@ -33,11 +33,17 @@ def tree_bytes(tree: PyTree) -> int:
 
 @dataclasses.dataclass
 class CommMeter:
-    """Algorithm-level bytes-on-wire accounting (host side, per round)."""
+    """Algorithm-level bytes-on-wire accounting (host side, per round).
+
+    ``sim_seconds`` is the simulated wall-clock of the reference's async
+    latency model; the port's synchronous rounds leave it at zero, and it
+    rides the checkpoint's meter so the two packages' files agree.
+    """
 
     rounds: int = 0
     bytes_up: int = 0  # silo -> server (post-compression)
     bytes_down: int = 0  # server -> silo broadcast
+    sim_seconds: float = 0.0  # simulated wall-clock (async latency model)
 
     def record(self, up: int, down: int) -> None:
         """Log one round's realized (up, down) bytes."""
@@ -52,3 +58,17 @@ class CommMeter:
     @property
     def per_round(self) -> float:
         return self.total / max(self.rounds, 1)
+
+    def state_dict(self) -> Dict[str, Any]:
+        """Serializable counters (checkpointed by ``federated.api``)."""
+        return {"rounds": self.rounds, "bytes_up": self.bytes_up,
+                "bytes_down": self.bytes_down,
+                "sim_seconds": self.sim_seconds}
+
+    def load_state(self, state: Dict[str, Any]) -> None:
+        """Restore counters saved by :meth:`state_dict`."""
+        self.rounds = int(state["rounds"])
+        self.bytes_up = int(state["bytes_up"])
+        self.bytes_down = int(state["bytes_down"])
+        # Checkpoints written before the async clock lack the key (0.0).
+        self.sim_seconds = float(state.get("sim_seconds", 0.0))

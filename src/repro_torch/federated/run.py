@@ -1,32 +1,48 @@
-"""Federated runtime CLI of the port.
+"""Federated runtime CLI of the port — a thin spec-builder over ``federated.api``.
 
     python -m repro_torch.federated.run --model hier_bnn \
         --model-kwargs '{"in_dim":784,"hidden":64}' \
-        --silos 10 --rounds 3 --local-steps 4 --algo both --wire fused
+        --silos 10 --rounds 3 --local-steps 4 --algo both
 
     python -m repro_torch.federated.run --model glmm \
         --model-kwargs '{"num_children": 536}' --silos 2 \
         --global-family cholesky --rounds 3 --local-steps 25 --algo both
 
-Runs on ``cuda`` by default (``--device cpu`` for the CPU, where the
-fused wire takes the kernels' plain versions). Prints per-round ELBO,
-bytes on the wire, active silos and, with DP on, the cumulative ε; with
-``--algo both`` it asserts the §3.2 byte ordering (SFVI-Avg ships fewer
-bytes per round than SFVI when ``--local-steps > 1``).
+Flags build an :class:`~repro_torch.federated.api.ExperimentSpec` (the
+reference's JSON, key for key), which is the only construction path, so
+every run is serializable and resumable:
 
-``--global-family``/``--local-family`` (with ``--*-family-kwargs``) swap
-the model's variational families for registered ones (diag, cholesky,
-lowrank, conditional, batched_diag); a full-covariance global family's
-SFVI-Avg barycenter takes its square roots from the Newton–Schulz step
-kernel on the fused wire. A model without an eval hook prints no eval
-line.
+    ... --dump-spec > exp.json          # print the spec as JSON, exit
+    ... --spec exp.json                 # run exactly that spec (the
+                                        #   reference's --dump-spec too)
+    ... --ckpt-dir runs/a [--ckpt-every N]   # checkpoint the round state
+    ... --resume runs/a [--rounds M]    # continue (or extend) a saved run
+    ... --list-models                   # registered models + descriptions
 
-The flags are the subset of ``repro.federated.run`` the port supports.
+``--algo`` picks a registered strategy (``sfvi``, ``sfvi_avg``, ``pvi``,
+``fed_ep``) or ``both`` (SFVI and SFVI-Avg, asserting the §3.2 byte
+ordering); ``--strategy``/``--strategy-kwargs`` select one with
+hyperparameters (``--strategy pvi --strategy-kwargs '{"damping": 0.2}'``).
+``--sweep`` walks the scenario matrix (participation × stragglers ×
+compression × DP) and prints an ELBO/ε/bytes table.
+
+Runs on ``cuda`` by default (``--device cpu`` for the CPU, where the fused
+wire takes the kernels' plain versions). ``--wire`` defaults to ``fused``
+(the CUDA kernels); a spec's own ``runtime.wire`` (the reference's default
+is ``flat``) is kept by ``--spec`` and ``--resume``. ``--global-family`` /
+``--local-family`` swap the model's variational families for registered
+ones. A model without an eval hook prints no eval line.
+
+The reference's ``--async*``, ``--population``, ``--mesh``, ``--devices``,
+``--sanitize`` and multi-process flags are accepted at their defaults;
+set otherwise they are refused with the ROADMAP item that brings them.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
+import os
 import sys
 import time
 
@@ -34,7 +50,8 @@ from repro_torch.models.paper.registry import get_model, model_names
 
 
 def build_parser() -> argparse.ArgumentParser:
-    ap = argparse.ArgumentParser(prog="repro_torch.federated.run", description=__doc__)
+    ap = argparse.ArgumentParser(prog="repro_torch.federated.run", description=__doc__,
+                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--model", default="hier_bnn", choices=model_names())
     ap.add_argument("--model-kwargs", default="", metavar="JSON",
                     help="JSON dict forwarded to the registry builder")
@@ -49,9 +66,15 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--local-family-kwargs", default="", metavar="JSON",
                     help="JSON kwargs for --local-family")
     ap.add_argument("--silos", type=int, default=8)
-    ap.add_argument("--rounds", type=int, default=5)
+    ap.add_argument("--rounds", type=int, default=None,
+                    help="total rounds (default 5; with --resume, the new budget)")
     ap.add_argument("--local-steps", type=int, default=4)
-    ap.add_argument("--algo", default="both", choices=["both", "sfvi", "sfvi_avg"])
+    ap.add_argument("--algo", default="both",
+                    choices=["both", "sfvi", "sfvi_avg", "pvi", "fed_ep"])
+    ap.add_argument("--strategy", default=None, metavar="NAME",
+                    help="registered ServerStrategy name; overrides --algo")
+    ap.add_argument("--strategy-kwargs", default="", metavar="JSON",
+                    help='strategy hyperparameters, e.g. \'{"damping": 0.2}\' for pvi')
     ap.add_argument("--lr", type=float, default=2e-2)
     ap.add_argument("--participation", type=float, default=1.0)
     ap.add_argument("--dropout", type=float, default=0.0)
@@ -59,47 +82,70 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--trim-frac", type=float, default=0.1)
     ap.add_argument("--compress", default="none", choices=["none", "int8"])
     ap.add_argument("--eta-mode", default="barycenter", choices=["barycenter", "param"])
+    ap.add_argument("--async", dest="async_mode", action="store_true",
+                    help="buffered-async execution (not ported: ROADMAP Queue 1 item 4)")
+    ap.add_argument("--buffer-size", type=int, default=2)
+    ap.add_argument("--staleness-decay", type=float, default=0.5)
+    ap.add_argument("--latency", default="lognormal",
+                    choices=["constant", "lognormal", "straggler"])
+    ap.add_argument("--latency-scale", type=float, default=1.0)
+    ap.add_argument("--latency-sigma", type=float, default=0.5)
     ap.add_argument("--dp-noise", type=float, default=0.0,
                     help="Gaussian noise multiplier z (0 = DP off)")
     ap.add_argument("--dp-clip", type=float, default=1.0,
                     help="L2 clip norm C for silo uploads")
     ap.add_argument("--dp-delta", type=float, default=1e-5,
                     help="target delta for (eps, delta) reports")
-    ap.add_argument("--wire", default="fused", choices=["fused", "flat"],
-                    help="silo->server wire layout (fused = the CUDA kernels)")
+    ap.add_argument("--eval-every", type=int, default=0,
+                    help="run the registry eval hook every N rounds")
+    ap.add_argument("--sweep", action="store_true",
+                    help="run the scenario matrix instead of one config")
+    ap.add_argument("--sweep-participation", default="1.0,0.5")
+    ap.add_argument("--sweep-dropout", default="0.0,0.2")
+    ap.add_argument("--sweep-compress", default="none,int8")
+    ap.add_argument("--sweep-dp-noise", default="0.0,1.0")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--mesh", default="", metavar="SPEC",
+                    help="federated mesh as 'silo=N,model=N[,multiprocess]' (one "
+                         "device only: ROADMAP Queue 1 item 5)")
+    ap.add_argument("--wire", default="fused", choices=["fused", "flat", "legacy"],
+                    help="silo->server wire layout (fused = the CUDA kernels; "
+                         "legacy is not ported)")
+    ap.add_argument("--coordinator", default=None, metavar="HOST:PORT",
+                    help="multi-process runtime (ROADMAP Queue 1 item 5)")
+    ap.add_argument("--num-processes", type=int, default=None)
+    ap.add_argument("--process-id", type=int, default=None)
+    ap.add_argument("--devices", type=int, default=0,
+                    help="devices to span (ROADMAP Queue 1 item 5; 0 = one)")
+    ap.add_argument("--sanitize", action="store_true",
+                    help="the reference's JAX sanitizer (not ported)")
+    ap.add_argument("--list-models", action="store_true",
+                    help="print registered model names + descriptions, exit 0")
+    ap.add_argument("--spec", default=None, metavar="FILE",
+                    help="run this ExperimentSpec JSON (flags are ignored)")
+    ap.add_argument("--dump-spec", action="store_true",
+                    help="print the spec the flags build as JSON, exit 0 "
+                         "(needs a single algorithm)")
+    ap.add_argument("--ckpt-dir", default=None, metavar="DIR",
+                    help="save the full round state here at the end (and every "
+                         "--ckpt-every rounds)")
+    ap.add_argument("--ckpt-every", type=int, default=0,
+                    help="with --ckpt-dir: also save every N rounds (0 = end only)")
+    ap.add_argument("--resume", default=None, metavar="DIR",
+                    help="resume a checkpointed run (reads DIR/spec.json)")
+    ap.add_argument("--population", default="", metavar="JSON",
+                    help="a PopulationSpec as JSON (ROADMAP Queue 1 item 4)")
     ap.add_argument("--device", default=None,
                     help="torch device (default cuda; 'cpu' for the CPU)")
     return ap
 
 
-def build_server(args, algorithm: str, bundle, device):
-    """One ``Server`` for ``algorithm`` from the CLI flags and a staged bundle."""
-    from repro_torch.device import generator
-    from repro_torch.federated.aggregation import (
-        Int8Compressor,
-        MeanAggregator,
-        NoCompression,
-        TrimmedMeanAggregator,
-    )
-    from repro_torch.federated.privacy import PrivacyPolicy
-    from repro_torch.federated.runtime import Server
-    from repro_torch.optim import adam
-
-    problem = bundle.problem
-    privacy = (PrivacyPolicy(clip_norm=args.dp_clip, noise_multiplier=args.dp_noise,
-                             delta=args.dp_delta) if args.dp_noise > 0.0 else None)
-    return Server(
-        problem, bundle.datas, bundle.theta0,
-        problem.global_family.init(generator(args.seed, device)),
-        num_obs=bundle.num_obs,
-        server_opt=adam(args.lr),
-        local_opt=adam(args.lr) if problem.model.has_local else None,
-        aggregator=(TrimmedMeanAggregator(args.trim_frac)
-                    if args.aggregator == "trimmed" else MeanAggregator()),
-        compressor=Int8Compressor() if args.compress == "int8" else NoCompression(),
-        eta_mode=args.eta_mode, wire=args.wire, privacy=privacy, seed=args.seed,
-        strategy=algorithm, device=device)
+def _refuse_process_flags(args) -> None:
+    """The flags that name devices or processes the port cannot span."""
+    if args.devices or args.coordinator or args.num_processes or args.process_id:
+        raise NotImplementedError(
+            "--devices / --coordinator / --num-processes / --process-id: the "
+            "multi-GPU runtime is ROADMAP Queue 1 item 5")
 
 
 def _family_spec(name, kwargs_json):
@@ -107,7 +153,57 @@ def _family_spec(name, kwargs_json):
 
     if name is None:
         return None
-    return FamilySpec(name, json.loads(kwargs_json or "{}"))
+    return FamilySpec(name, kwargs=json.loads(kwargs_json or "{}"))
+
+
+def _async_cfg_from_args(args):
+    if not args.async_mode:
+        return None
+    from repro_torch.federated.scheduler import AsyncConfig
+
+    return AsyncConfig(buffer_size=args.buffer_size, staleness_decay=args.staleness_decay,
+                       latency=args.latency, latency_scale=args.latency_scale,
+                       latency_sigma=args.latency_sigma)
+
+
+def _spec_from_args(args, algorithm: str):
+    """The thin spec-builder: CLI flags -> ExperimentSpec."""
+    from repro_torch.federated.api import (
+        ExperimentSpec,
+        ModelSpec,
+        OptimizerSpec,
+        RuntimeSpec,
+    )
+    from repro_torch.federated.population import PopulationSpec
+    from repro_torch.federated.scheduler import Scenario
+    from repro_torch.federated.strategy import StrategySpec
+    from repro_torch.launch.mesh import MeshSpec
+
+    strat_kwargs = json.loads(args.strategy_kwargs or "{}")
+    scenario = Scenario(
+        algorithm=algorithm, participation=args.participation, dropout=args.dropout,
+        compression=args.compress, dp_noise=args.dp_noise, dp_clip=args.dp_clip,
+        dp_delta=args.dp_delta, aggregator=args.aggregator, trim_frac=args.trim_frac,
+        async_cfg=_async_cfg_from_args(args))
+    return ExperimentSpec(
+        model=ModelSpec(
+            args.model, kwargs=json.loads(args.model_kwargs or "{}"),
+            global_family=_family_spec(args.global_family, args.global_family_kwargs),
+            local_family=_family_spec(args.local_family, args.local_family_kwargs)),
+        scenario=scenario,
+        strategy=StrategySpec(algorithm, strat_kwargs) if strat_kwargs else None,
+        num_silos=args.silos,
+        rounds=args.rounds if args.rounds is not None else 5,
+        local_steps=args.local_steps,
+        server_opt=OptimizerSpec("adam", args.lr),
+        eta_mode=args.eta_mode,
+        eval_every=args.eval_every,
+        seed=args.seed,
+        runtime=RuntimeSpec(wire=args.wire, mesh=MeshSpec.parse(args.mesh),
+                            sanitize=args.sanitize),
+        population=(PopulationSpec.from_dict(json.loads(args.population))
+                    if args.population else None),
+    )
 
 
 def _log_round(total_silos: int):
@@ -119,48 +215,170 @@ def _log_round(total_silos: int):
     return log
 
 
+def _report(exp) -> None:
+    srv, spec = exp.server, exp.spec
+    print(f"  total: {srv.comm.total:,} B in {srv.comm.rounds} rounds "
+          f"({srv.comm.per_round:,.0f} B/round)")
+    if exp.accountant is not None:
+        delta = spec.scenario.dp_delta
+        eps, order = exp.accountant.epsilon(delta)
+        print(f"  privacy: ({eps:.3f}, {delta:g})-DP after "
+              f"{exp.accountant.steps} exchanges (RDP order {order})")
+    for k, v in exp.evaluate().items():
+        print(f"  {k}: {v:.3f}")
+
+
+def _checkpointing(exp, log, ckpt_dir, ckpt_every: int):
+    """The round callback: log, and save every ``ckpt_every`` rounds to
+    ``ckpt_dir`` (never at the last round, which the caller saves)."""
+    def cb(r, metrics):
+        log(r, metrics)
+        if ckpt_dir and ckpt_every and (r + 1) % ckpt_every == 0 \
+                and (r + 1) < exp.spec.rounds:
+            exp.save(ckpt_dir)
+    return cb
+
+
+def _run_one(spec, bundle, device, ckpt_dir=None, ckpt_every: int = 0):
+    """Build + run one spec against a pre-staged bundle; print a report."""
+    from repro_torch.federated.api import build
+    from repro_torch.federated.scheduler import algorithm_label
+
+    exp = build(spec, bundle=bundle, device=device)
+    sc = spec.scenario
+    print(f"\n== {algorithm_label(spec.algorithm)}: {spec.model.name}, "
+          f"J={spec.num_silos}, {spec.rounds} rounds x {spec.local_steps} local steps, "
+          f"wire={exp.server.wire}, device={exp.server.device}"
+          + (f", DP(z={sc.dp_noise:g}, C={sc.dp_clip:g})" if sc.dp_noise > 0 else "")
+          + " ==", flush=True)
+    t0 = time.time()
+    exp.run(callback=_checkpointing(exp, _log_round(spec.num_silos), ckpt_dir, ckpt_every))
+    print(f"  wall time: {time.time() - t0:.1f}s")
+    if ckpt_dir:
+        print(f"  checkpoint: {exp.save(ckpt_dir)}")
+    _report(exp)
+    return exp
+
+
+def _run_sweep(args, base_spec, bundle, device) -> int:
+    """One invocation, the whole scenario grid (ELBO / ε / bytes table)."""
+    from repro_torch.federated.api import build, scenario_specs
+    from repro_torch.federated.scheduler import scenario_matrix
+
+    def floats(s):
+        return tuple(float(x) for x in s.split(","))
+
+    grid = scenario_matrix(
+        algorithms=["sfvi", "sfvi_avg"] if args.algo == "both" else [args.algo],
+        participation=floats(args.sweep_participation),
+        dropout=floats(args.sweep_dropout),
+        compression=tuple(args.sweep_compress.split(",")),
+        dp_noise=floats(args.sweep_dp_noise),
+        dp_clip=args.dp_clip, dp_delta=args.dp_delta)
+    specs = scenario_specs(base_spec, grid)
+    print(f"\n== scenario sweep: {base_spec.model.name}, J={base_spec.num_silos}, "
+          f"{len(specs)} scenarios x {base_spec.rounds} rounds ==")
+    rows = []
+    for spec in specs:
+        exp = build(spec, bundle=bundle, device=device)
+        t0 = time.time()
+        h = exp.run()
+        dt = time.time() - t0
+        eps = h["epsilon"][-1] if "epsilon" in h else float("inf")
+        rows.append((spec.scenario.name, h["elbo"][-1], eps,
+                     exp.comm.per_round / 1024, dt / spec.rounds))
+    w = max(len(r[0]) for r in rows)
+    print(f"  {'scenario':<{w}}  {'ELBO':>12}  {'eps':>8}  {'KiB/round':>10}  {'s/round':>8}")
+    for name, elbo, eps, kib, spr in rows:
+        eps_s = f"{eps:8.3f}" if eps != float("inf") else "     inf"
+        print(f"  {name:<{w}}  {elbo:12.2f}  {eps_s}  {kib:10.1f}  {spr:8.2f}")
+    return 0
+
+
+def _resume(args, device) -> int:
+    """Continue a checkpointed run from ``--resume DIR``; ``--rounds N``
+    sets a new total budget."""
+    from repro_torch.federated.api import Experiment, ExperimentSpec
+    from repro_torch.launch.mesh import MeshSpec
+
+    spec = ExperimentSpec.load(os.path.join(args.resume, "spec.json"))
+    if args.rounds is not None:
+        spec = dataclasses.replace(spec, rounds=args.rounds)
+    if args.mesh:
+        spec = dataclasses.replace(spec, runtime=dataclasses.replace(
+            spec.runtime, mesh=MeshSpec.parse(args.mesh)))
+    exp = Experiment.resume(args.resume, spec=spec, device=device)
+    remaining = exp.remaining_rounds
+    print(f"== resume: {spec.name} at round {exp.round}/{spec.rounds} "
+          f"({remaining} remaining), wire={exp.server.wire}, "
+          f"device={exp.server.device} ==", flush=True)
+    if remaining:
+        out = args.ckpt_dir or args.resume
+        exp.run(callback=_checkpointing(exp, _log_round(spec.num_silos), out,
+                                        args.ckpt_every))
+        print(f"  checkpoint: {exp.save(out)}")
+    _report(exp)
+    return 0
+
+
 def main(argv=None) -> int:
+    """Run the requested spec(s) and assert the §3.2 byte ordering."""
     args = build_parser().parse_args(argv)
+    if args.list_models:
+        from repro_torch.models.paper.registry import list_models
+
+        width = max(len(n) for n, _ in list_models())
+        for name, desc in list_models():
+            print(f"{name:<{width}}  {desc}")
+        return 0
+    _refuse_process_flags(args)
     from repro_torch.device import resolve_device
-    from repro_torch.federated.scheduler import RoundScheduler, algorithm_label
-    from repro_torch.models.paper.registry import apply_family_spec
+    from repro_torch.federated.api import ExperimentSpec
+
+    if args.spec:
+        specs = [ExperimentSpec.load(args.spec)]
+    else:
+        if args.strategy:
+            algos = [args.strategy]
+        elif args.async_mode:
+            algos = ["sfvi_avg"]
+        elif args.algo == "both":
+            algos = ["sfvi", "sfvi_avg"]
+        else:
+            algos = [args.algo]
+        specs = [_spec_from_args(args, a) for a in algos]
+    if args.dump_spec:
+        if args.resume or len(specs) != 1:
+            print("--dump-spec needs a single algorithm; pass --algo or --strategy "
+                  "with one registered name", file=sys.stderr)
+            return 2
+        print(specs[0].to_json())
+        return 0
 
     device = resolve_device(args.device)
-    bundle = get_model(args.model).build(
-        args.seed, args.silos, device=device, **json.loads(args.model_kwargs or "{}"))
-    bundle = apply_family_spec(
-        bundle, global_family=_family_spec(args.global_family, args.global_family_kwargs),
-        local_family=_family_spec(args.local_family, args.local_family_kwargs))
-    algos = ["sfvi", "sfvi_avg"] if args.algo == "both" else [args.algo]
-    per_round = {}
-    for algo in algos:
-        server = build_server(args, algo, bundle, device)
-        print(f"\n== {algorithm_label(algo)}: {args.model}, J={args.silos}, "
-              f"{args.rounds} rounds x {args.local_steps} local steps, "
-              f"wire={args.wire}, device={device}"
-              + (f", DP(z={args.dp_noise:g}, C={args.dp_clip:g})"
-                 if args.dp_noise > 0 else "") + " ==", flush=True)
-        sched = RoundScheduler(args.silos, participation=args.participation,
-                               dropout=args.dropout, seed=args.seed)
-        t0 = time.time()
-        server.run(args.rounds, local_steps=args.local_steps, scheduler=sched,
-                   callback=_log_round(args.silos))
-        print(f"  wall time: {time.time() - t0:.1f}s")
-        print(f"  total: {server.comm.total:,} B in {server.comm.rounds} rounds "
-              f"({server.comm.per_round:,.0f} B/round)")
-        if server.accountant is not None:
-            eps, order = server.accountant.epsilon(args.dp_delta)
-            print(f"  privacy: ({eps:.3f}, {args.dp_delta:g})-DP after "
-                  f"{server.accountant.steps} exchanges (RDP order {order})")
-        if bundle.eval_fn is not None:
-            for k, v in bundle.eval_fn(server).items():
-                print(f"  {k}: {v:.3f}")
-        per_round[algo] = server.comm.per_round
-    if len(per_round) == 2:
-        sfvi_pr, avg_pr = per_round["sfvi"], per_round["sfvi_avg"]
+    if args.resume:
+        return _resume(args, device)
+    base = specs[0]
+    data_seed = base.data_seed if base.data_seed is not None else base.seed
+    bundle = get_model(base.model.name).build(
+        data_seed, base.num_silos, device=device, **base.model.kwargs)
+    if args.sweep:
+        return _run_sweep(args, base, bundle, device)
+
+    def ckpt_dir_for(spec):
+        if not args.ckpt_dir:
+            return None
+        return args.ckpt_dir if len(specs) == 1 else os.path.join(args.ckpt_dir,
+                                                                  spec.algorithm)
+
+    exps = {s.algorithm: _run_one(s, bundle, device, ckpt_dir=ckpt_dir_for(s),
+                                  ckpt_every=args.ckpt_every) for s in specs}
+    if len(exps) == 2:
+        sfvi_pr = exps["sfvi"].comm.per_round
+        avg_pr = exps["sfvi_avg"].comm.per_round
         print(f"\nbytes/round: SFVI={sfvi_pr:,.0f}  SFVI-Avg={avg_pr:,.0f}  "
               f"(x{sfvi_pr / max(avg_pr, 1):.1f} reduction)")
-        if args.local_steps > 1:
+        if base.local_steps > 1:
             assert avg_pr < sfvi_pr, "SFVI-Avg must ship strictly fewer bytes/round"
         else:
             assert avg_pr <= sfvi_pr, "SFVI-Avg must never ship more bytes/round than SFVI"

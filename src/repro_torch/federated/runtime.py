@@ -1,8 +1,9 @@
 """The federated round on one device: ``Server`` (the port of ``repro.federated.runtime``).
 
-All J silos advance together: silo state (η_{L_j}, its optimizer state)
-and data are stacked along a leading silo axis, and the per-silo
-strategy hooks run under ``torch.func.vmap`` over that axis. On one
+All J silos advance together: silo state (η_{L_j}, its optimizer state,
+and per-silo strategy state such as PVI's sites λ_j) and data are
+stacked along a leading silo axis, and the per-silo strategy hooks run
+under ``torch.func.vmap`` over that axis. On one
 device the cross-silo gather is the identity, so the reference's mesh
 padding, ``shard_map`` and graph cache have no counterpart (J_pad == J).
 
@@ -182,8 +183,8 @@ class Server:
             "eta_L": eta_L,
             "opt_server": server_opt.init({"theta": theta, "eta_G": eta_G}),
             "opt_local": opt_L,
-            "strategy": {},
         }
+        self.state["strategy"] = self._strategy.init_silo_state(self)
         self.comm = CommMeter()
 
     # -- accessors ------------------------------------------------------------
@@ -207,6 +208,12 @@ class Server:
 
     def _resolve(self, algorithm) -> ServerStrategy:
         return self._strategy if algorithm is None else resolve_strategy(algorithm)
+
+    def _ensure_strategy_state(self, strat: ServerStrategy) -> None:
+        """Create per-silo strategy state when ``run`` switches to a stateful
+        strategy the Server was not built with (restored state is kept)."""
+        if strat.has_silo_state and not tree_leaves(self.state["strategy"]):
+            self.state["strategy"] = strat.init_silo_state(self)
 
     # -- wire accounting ------------------------------------------------------
 
@@ -365,15 +372,17 @@ class Server:
         eps_L_seq = torch.stack([d[1] for d in steps]) if self._has_local else None
         noise = steps[0][2]
 
-        def per_silo(eta_Lj, opt_Lj, data_j, m_j, n_obs_j, eps_Lj):
-            eta_Lj, opt_Lj, ship, elbos = strat.local_run(
-                ctx, theta, eta_G, eta_Lj, opt_Lj, data_j, m_j, n_obs_j,
+        def per_silo(eta_Lj, opt_Lj, st_j, data_j, m_j, n_obs_j, eps_Lj):
+            eta_Lj, opt_Lj, st_j, ship, elbos = strat.local_run(
+                ctx, theta, eta_G, eta_Lj, opt_Lj, st_j, data_j, m_j, n_obs_j,
                 eps_G_seq, eps_Lj)
-            return eta_Lj, opt_Lj, ship, elbos * m_j
+            return eta_Lj, opt_Lj, st_j, ship, elbos * m_j
 
-        # eps_L_seq is (K, J, ...): its silo axis is 1.
-        eta_L, opt_L, ship, elbos = vmap(per_silo, in_dims=self._silo_in_dims(1))(
-            s["eta_L"], s["opt_local"], self.data, mask, n_j, eps_L_seq)
+        # The strategy state rides the silo axis beside eta_L; eps_L_seq is
+        # (K, J, ...): its silo axis is 1.
+        in_dims = (0,) + self._silo_in_dims(1)  # every silo argument at 0 but eps
+        eta_L, opt_L, strat_state, ship, elbos = vmap(per_silo, in_dims=in_dims)(
+            s["eta_L"], s["opt_local"], s["strategy"], self.data, mask, n_j, eps_L_seq)
         enc = self._upload(wire.pack(ship, batch_ndim=1), mask, noise, ref)
         elbo_t = torch.sum(elbos, dim=0) / n_active
         # Round-cadence merges may need every silo's upload (the
@@ -386,7 +395,7 @@ class Server:
         theta, eta_G, opt_server = strat.server_update(
             ctx, theta, eta_G, s["opt_server"], combined, shipped, w, n_active)
         s.update(theta=theta, eta_G=eta_G, opt_server=opt_server,
-                 eta_L=eta_L, opt_local=opt_L)
+                 eta_L=eta_L, opt_local=opt_L, strategy=strat_state)
         return elbo_t
 
     # -- driver ---------------------------------------------------------------
@@ -417,6 +426,7 @@ class Server:
             raise ValueError(f"local_steps must be >= 1, got {local_steps}")
         strat = self._resolve(algorithm)
         strat.validate(self)
+        self._ensure_strategy_state(strat)
         up1 = self.bytes_up_per_silo(strat)
         down1 = self.bytes_down_per_silo()
         sched = scheduler or RoundScheduler(self.fed_J, seed=self.seed)

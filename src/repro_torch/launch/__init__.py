@@ -1,2 +1,2 @@
-"""Serving entry points of the port's backbone (``serve_backbone``) and the
-serve steps they run (``steps``)."""
+"""Serving entry points of the port's backbone (``serve_backbone``), the
+serve steps they run (``steps``), and the federated mesh spec (``mesh``)."""

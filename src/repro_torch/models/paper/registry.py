@@ -71,6 +71,11 @@ def get_model(name: str) -> ModelEntry:
             + ", ".join(sorted(_REGISTRY))) from None
 
 
+def list_models() -> List[Tuple[str, str]]:
+    """(name, description) of every registered model, sorted by name."""
+    return [(n, _REGISTRY[n].description) for n in sorted(_REGISTRY)]
+
+
 def model_names() -> List[str]:
     return sorted(_REGISTRY)
 

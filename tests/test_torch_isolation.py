@@ -1,9 +1,11 @@
 """The PyTorch port stands alone: no JAX, no ``repro``, card by default.
 
-* ``import repro_torch`` and every submodule works with ``jax`` blocked
-  (a subprocess with ``sys.modules["jax"] = None``);
+* ``import repro_torch`` and every submodule works with ``jax``, ``repro``
+  and ``msgpack`` blocked (a subprocess with ``sys.modules["jax"] = None``
+  and so on), and a checkpoint round trip runs there;
 * an AST scan of ``src/repro_torch`` and ``chip_smoke.py`` finds no
-  ``import jax`` / ``from jax`` and no import of the ``repro`` package;
+  ``import jax`` / ``from jax``, no import of the ``repro`` package and no
+  ``msgpack`` (the card's machine does not promise it);
 * the entry points default to ``cuda`` and raise on a machine without
   CUDA instead of carrying on on the CPU.
 """
@@ -33,15 +35,24 @@ def test_port_imports_with_jax_blocked():
     for name in ("federated.runtime", "kernels.wire", "kernels.reparam", "kernels.build",
                  "models.paper.glmm", "core.barycenter", "data.synthetic",
                  "kernels.attention", "kernels.gla", "kernels.rmsnorm",
-                 "models.backbone.transformer", "launch.serve_backbone"):
+                 "models.backbone.transformer", "launch.serve_backbone",
+                 "federated.api", "federated.population", "launch.mesh",
+                 "checkpoint", "checkpoint.io", "federated.run"):
         assert f"repro_torch.{name}" in mods
     code = (
-        "import sys, importlib\n"
+        "import sys, importlib, tempfile, os\n"
         "sys.modules['jax'] = None\n"
         "sys.modules['repro'] = None\n"
+        "sys.modules['msgpack'] = None\n"
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
-        "assert 'jax' not in [k for k, v in sys.modules.items() if v is not None]\n"
+        "loaded = [k for k, v in sys.modules.items() if v is not None]\n"
+        "assert 'jax' not in loaded and 'msgpack' not in loaded\n"
+        "import torch\n"
+        "from repro_torch.checkpoint import load_pytree, save_pytree\n"
+        "p = os.path.join(tempfile.mkdtemp(), 'c.msgpack')\n"
+        "save_pytree(p, {'a': torch.arange(3.0)})\n"
+        "assert torch.equal(load_pytree(p, {'a': torch.zeros(3)})['a'], torch.arange(3.0))\n"
         "print('ok', len(" + repr(mods) + "))\n"
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -68,6 +79,7 @@ def test_no_jax_or_reference_imports(path):
         root = name.split(".")[0]
         assert root != "jax", f"{path} imports {name}"
         assert root != "repro", f"{path} imports {name} (the JAX package)"
+        assert root != "msgpack", f"{path} imports {name} (not on the card's machine)"
 
 
 def test_entry_points_default_to_cuda(monkeypatch):
