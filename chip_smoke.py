@@ -22,10 +22,13 @@ non-zero):
      root (one launch of the root kernel up to the wrapper's limit d, 40
      step calls past it) at d from 1 to the limit + 1, and against the 40
      step calls at the path's (2, 5) and (6, 5). The combine at the main
-     path's shapes, the barycenter's (10, 50,177), glmm's (2, 5), (2, 20)
+     path's shapes, the barycenter's (10, 50,177) (and the churn's (8, 50,177)
+     and (9, 50,177)), glmm's (2, 5), (2, 20)
      and (6, 20) with trim 0.2, P % 4 = 1, 2, 3, odd P in int8, J = 33
      and 64 trimmed and x one element off 16 bytes, each case run twice
-     (bit-identical), and its shared-memory plan against the source's.
+     (bit-identical), and its shared-memory plan against the source's; its
+     cases include an async flush's weights, count · (1 + staleness)^-0.5
+     with one silo counted twice, through the mean and the trimmed mean.
      The reparam + STL forward at N = 1, 7, 4,097, 50,177 and 508,160 in
      f32 and bf16, on aligned inputs (16-byte vectors) and views one
      element off (the scalar route): z and logq against the plain version,
@@ -107,7 +110,39 @@ non-zero):
        run's byte for byte; hier_bnn PVI 3 rounds; the GLMM + Cholesky
        SFVI-Avg as 2 rounds + save/resume + 1, bit-identical, 100 root
        launches a round. Each run prints its s/round, save and resume
-       ms, bytes and launches a round. Then the backbone's serve path
+       ms, bytes and launches a round. Then phase 3d, buffered-async
+       flushes (``async_engine.run_buffered``), silo churn
+       (``population.PopulationEngine``) and the posterior endpoint
+       (``federated.serve``), through the API on the fused wire, counters
+       set to 0 just before each run and read just after: the smoke
+       config's SFVI-Avg async (B = 2, straggler), 25 flushes, 63,072 B a
+       flush, 28.0 simulated seconds; the same + int8 + DP (z 0.3, C 0.3)
+       whole and as 12 + save/resume + 13, bit-identical (the
+       ``BufferState`` too), 39,428 B a flush, ε within 1e-4 of 254.6345;
+       hier_bnn at §4.1 width, B = 3, int8 + trimmed (0.1) + DP, 6 flushes
+       of 1,505,322 B, some weight not 0 or 1; the GLMM + Cholesky, B = 2,
+       lognormal, 3 flushes of 320 B and 100 root launches (these two
+       profiled for 2 more flushes); hier_bnn churn (a roster of 10 from 4,
+       warm starts, 8 rounds, whole and 4 + save/resume + 4, the
+       ``PopulationState`` too; a line a round with the live J, joins,
+       departures and returns) and the smoke config's async churn (2 of
+       4, 10 flushes, 5 + save/resume + 5); then ``Posterior`` on the churn
+       run's last checkpoint: 48 sample queries of n = 32 over the live
+       silos and one global sample, 16 timed repeats (median ms,
+       queries/s, samples/s), equal answers from a second replica, each
+       answer its slice of its group's draw, ``predict`` on 200 test
+       images (n = 8) beside the run's eval, and the serve CLI once. Every
+       upload, combine and root launch of these runs (each J the churn
+       reaches, each flush's weights) is held against its plain version
+       on its own inputs, and the host clock around the event loops
+       (``simulate_flush``, ``begin_flush`` / ``begin_round``,
+       ``grow_silos``) is printed per flush. Last, the event loops on the
+       card against the same spec on the CPU on one injected stream (the
+       smoke async + DP row and its async churn, 6 flushes each, and
+       hier_bnn churn at phase 2b's small width, 4 rounds, to phase 2b's
+       tolerances; hier_bnn churn at §4.1 width, 4 rounds, its ELBO to
+       1e-3 and its η_G gap beside the CPU's own from a start one float32
+       step away). Then the backbone's serve path
      (``repro_torch.launch.serve_backbone.serve``) at full width in bf16,
      with the flash-attention, GLA and RMSNorm launch counters set to 0
      just before each run and read just after (every bf16 flash and GLA
@@ -299,11 +334,18 @@ def combine_cases(torch, J, P, gen):
     two_active[0] = two_active[J - 1] = 1.0
     q = torch.randint(-127, 128, (J, P), generator=gen, device=DEVICE).to(torch.int8)
     s = torch.rand((J,), generator=gen, device=DEVICE) * 0.05 + 1e-3
+    # An async flush's weights, count · (1 + staleness)^-0.5: one silo
+    # counted twice, staleness 0 to 3, a third of the silos absent.
+    counts = (torch.arange(J, device=DEVICE) % 3 != 2).float()
+    counts[0] = 2.0
+    stale = (torch.arange(J, device=DEVICE) % 4).float()
+    stale_w = counts * (1.0 + stale) ** -0.5
     return {
         "mean_all": dict(x=x, w=ones),
         "mean_partial": dict(x=x, w=part),
         "mean_frac_below_1": dict(x=x, w=frac),
         "mean_all_zero": dict(x=x, w=zeros),
+        "mean_stale_weights": dict(x=x, w=stale_w),
         "mean_int8": dict(x=q, w=part, scales=s),
         "trim_0.34_partial": dict(x=x, w=part, trim_frac=0.34),
         "trim_0.2": dict(x=x, w=ones, trim_frac=0.2),
@@ -312,6 +354,7 @@ def combine_cases(torch, J, P, gen):
         "trim_n1": dict(x=x, w=one_active, trim_frac=0.34),
         "trim_n2": dict(x=x, w=two_active, trim_frac=0.34),
         "trim_int8": dict(x=q, w=part, scales=s, trim_frac=0.1),
+        "trim_stale_weights": dict(x=x, w=stale_w, trim_frac=0.2),
     }
 
 
@@ -372,8 +415,10 @@ def check_trim_33(torch, wire, ref, gen):
 # more than 48 KB of shared memory). At (64, 50,177) a tile is 128
 # columns, so warps other than warp 0, which finds n and k, read the tile
 # and the scalars: only the tile barrier makes them wait, and the cases
-# before leave other n, k and rows in shared memory.
-COMBINE_SHAPES = [(7, 4099), (10, 50_177), (2, 5), (2, 20), (6, 20), (5, 4097), (3, 4098),
+# before leave other n, k and rows in shared memory. J = 8 and 9 at the
+# barycenter's P: instantiations of the combine that only the churn reaches.
+COMBINE_SHAPES = [(8, 50_177), (9, 50_177),
+                  (7, 4099), (10, 50_177), (2, 5), (2, 20), (6, 20), (5, 4097), (3, 4098),
                   (1, 7), (16, 515), (20, 777), (33, 1001), (64, 50_177),
                   (1024, 48)] + PAPER_SHAPES
 
@@ -654,7 +699,7 @@ def compare_cuda_vs_cpu(np, torch, label, bundle, configs, K, seed):
     from repro_torch.device import generator
     from repro_torch.federated.runtime import Server
     from repro_torch.optim import adam
-    from repro_torch.tree import tree_leaves, tree_map
+    from repro_torch.tree import tree_map
 
     problem = bundle.problem
     J = len(bundle.datas)
@@ -670,21 +715,31 @@ def compare_cuda_vs_cpu(np, torch, label, bundle, configs, K, seed):
         servers["fused"].state = tree_map(lambda x: x.to(DEVICE), servers["flat"].state)
         draws = injected_draws(np, torch, problem, J, servers["flat"].wire_spec().dim, seed)
         hist = {k: srv.run(3, local_steps=K, draws=draws) for k, srv in servers.items()}
-        e_c = np.asarray(hist["flat"]["elbo_trace"])
-        e_g = np.asarray(hist["fused"]["elbo_trace"])
-        rel = float(np.max(np.abs(e_c - e_g) / np.abs(e_c)))
-        pairs = [(a.cpu(), b) for key in ("theta", "eta_G")
-                 for a, b in zip(tree_leaves(servers["fused"].state[key]),
-                                 tree_leaves(servers["flat"].state[key]), strict=True)]
-        diff = max(float((a - b).abs().max()) for a, b in pairs)
-        diff_rel = max(float((a - b).abs().max() / b.abs().max()) for a, b in pairs)
-        print(f"  port {DEVICE}/fused vs cpu/flat [{label} {name}] 3 rounds: elbo "
-              f"max_rel={rel:.2e} (<= 1e-3), theta+eta_G max_abs={diff:.2e} (<= 1e-3), "
-              f"max_rel={diff_rel:.2e} (<= 1e-3, per leaf against its largest entry)",
-              flush=True)
-        assert np.all(np.isfinite(e_g)) and rel <= 1e-3, name
-        assert diff <= 1e-3 and diff_rel <= 1e-3, name
-        assert hist["flat"]["bytes_up"] == hist["fused"]["bytes_up"], name
+        hold_to_cpu(np, f"{label} {name}, fused vs flat, 3 rounds", hist["flat"], hist["fused"],
+                    servers["flat"], servers["fused"])
+
+
+def hold_to_cpu(np, label, h_cpu, h_card, srv_cpu, srv_card):
+    """The port on the card against the port on the CPU after one run on one
+    injected stream: the ELBO trace within 1e-3 relative, θ and η_G within
+    1e-3, both absolute and relative to each leaf's largest entry, and the
+    bytes up equal."""
+    from repro_torch.tree import tree_leaves
+
+    e_c = np.asarray(h_cpu["elbo_trace"])
+    e_g = np.asarray(h_card["elbo_trace"])
+    rel = float(np.max(np.abs(e_c - e_g) / np.abs(e_c)))
+    pairs = [(a.cpu(), b) for key in ("theta", "eta_G")
+             for a, b in zip(tree_leaves(srv_card.state[key]), tree_leaves(srv_cpu.state[key]),
+                             strict=True)]
+    diff = max(float((a - b).abs().max()) for a, b in pairs)
+    diff_rel = max(float((a - b).abs().max() / b.abs().max()) for a, b in pairs)
+    print(f"  port on {DEVICE} vs the CPU [{label}]: elbo max_rel={rel:.2e} (<= 1e-3), "
+          f"theta+eta_G max_abs={diff:.2e} (<= 1e-3), max_rel={diff_rel:.2e} (<= 1e-3, per "
+          f"leaf against its largest entry)", flush=True)
+    assert np.all(np.isfinite(e_g)) and rel <= 1e-3, label
+    assert diff <= 1e-3 and diff_rel <= 1e-3, label
+    assert h_cpu["bytes_up"] == h_card["bytes_up"], label
 
 
 def check_port_cuda_vs_cpu(np, torch):
@@ -1610,13 +1665,19 @@ def counted(torch, wire, reparam, fn):
     return out, {k: wire.LAUNCHES[k] for k in KERNEL_COUNTS}
 
 
-def api_rounds(torch, wire, reparam, exp, rounds):
-    """``exp.run(rounds)`` counted: (this call's history, counts, s a round)."""
+def api_rounds(torch, wire, reparam, exp, rounds, on_round=None):
+    """``exp.run(rounds)`` counted: (this call's history, counts, s a round).
+    ``on_round(exp, r, metrics)`` runs after each round's time stamp."""
     before = {k: len(v) for k, v in exp.history.items()}
     stamps = []
+
+    def cb(r, m):
+        stamps.append(time.perf_counter())
+        if on_round is not None:
+            on_round(exp, r, m)
+
     t0 = time.perf_counter()
-    h, counts = counted(torch, wire, reparam, lambda: exp.run(
-        rounds, callback=lambda r, m: stamps.append(time.perf_counter())))
+    h, counts = counted(torch, wire, reparam, lambda: exp.run(rounds, callback=cb))
     chunk = {k: v[before.get(k, 0):] for k, v in h.items()}
     return chunk, counts, [b - a for a, b in zip([t0] + stamps[:-1], stamps)]
 
@@ -1676,16 +1737,46 @@ def api_line(label, rounds, round_s, bytes_round, counts, save_s=(), resume_s=()
     print(json.dumps(row), flush=True)
 
 
+def run_facts(exp, h) -> dict:
+    """Bytes a round (one number when every round sent the same), the
+    simulated seconds and the active silos a round, for :func:`api_line`."""
+    totals = [u + d for u, d in zip(h["bytes_up"], h["bytes_down"], strict=True)]
+    return {"bytes_round": totals[0] if len(set(totals)) == 1 else totals,
+            "sim_seconds": exp.comm.sim_seconds, "n_active": h["n_active"]}
+
+
+def engine_states(exp):
+    """The async event loop's and the population's state as JSON dicts (None
+    when the run has none)."""
+    return (None if exp.async_state is None else exp.async_state.state_dict(),
+            None if exp.population is None else exp.population.state.state_dict())
+
+
+def bytes_check(label, want_total):
+    """The byte check of a run's history: ``want_total`` bytes up + down each
+    round, or, when it is a callable, that callable on the history."""
+    if callable(want_total):
+        return want_total
+
+    def check(h):
+        totals = [u + d for u, d in zip(h["bytes_up"], h["bytes_down"], strict=True)]
+        assert totals == [want_total] * len(totals), (label, totals)
+    return check
+
+
 def api_save_resume(torch, wire, reparam, label, spec, split, per_round, want_total,
-                    work, want_eps=None):
+                    work, want_eps=None, on_round=None):
     """``spec`` run whole, and run as ``split`` rounds + save + resume into a
-    fresh object + the rest: every state leaf and the whole history must be
-    bit-identical. Returns the summed launch counts of the three runs."""
+    fresh object + the rest: every state leaf, the whole history, the async
+    ``BufferState`` and the ``PopulationState`` must be bit-identical.
+    ``want_total`` as :func:`bytes_check`; ``on_round(exp, r, metrics)``
+    sees the whole run's rounds. Returns the summed launch counts of the
+    three runs."""
     from repro_torch.federated.api import Experiment, build
 
     R = spec.rounds
     full = build(spec, device=DEVICE)
-    h_full, c_full, s_full = api_rounds(torch, wire, reparam, full, R)
+    h_full, c_full, s_full = api_rounds(torch, wire, reparam, full, R, on_round)
     part = build(spec, device=DEVICE)
     h1, c1, s1 = api_rounds(torch, wire, reparam, part, split)
     t0 = time.perf_counter()
@@ -1696,8 +1787,7 @@ def api_save_resume(torch, wire, reparam, label, spec, split, per_round, want_to
     resume_s = time.perf_counter() - t0
     assert res.round == split and res.server.wire == "fused", label
     h2, c2, s2 = api_rounds(torch, wire, reparam, res, R - split)
-    totals = [u + d for u, d in zip(h_full["bytes_up"], h_full["bytes_down"], strict=True)]
-    assert totals == [want_total] * R, (label, totals)
+    bytes_check(label, want_total)(h_full)
     assert all(math.isfinite(e) for e in h_full["elbo_trace"]), label
     if want_eps is not None:
         assert abs(h_full["epsilon"][-1] - want_eps) <= 1e-4, (label, h_full["epsilon"][-1])
@@ -1706,28 +1796,30 @@ def api_save_resume(torch, wire, reparam, label, spec, split, per_round, want_to
     check_launches(label + " resumed", c2, per_round, R - split)
     diff = state_diff(torch, full.server, res.server)
     hist = [k for k in h_full if h_full[k] != h1[k] + h2[k]]
+    engines = engine_states(res) == engine_states(full)
     print(json.dumps({"api_resume": label, "state_leaves_differing": diff,
-                      "history_keys_differing": hist,
+                      "history_keys_differing": hist, "engine_states_equal": engines,
                       "rounds_full": h_full.get("elbo"), "rounds_resumed": h2.get("elbo")}),
           flush=True)
-    assert not diff and not hist, f"{label}: resumed run is not bit-identical"
+    assert not diff and not hist and engines, f"{label}: resumed run is not bit-identical"
     assert res.comm.state_dict() == full.comm.state_dict(), label
-    api_line(label, R, s_full, want_total, c_full, [save_s], [resume_s],
-             split=split, s_per_round_resumed=s2, epsilon=h_full.get("epsilon", [None])[-1])
+    api_line(label, R, s_full, counts=c_full, save_s=[save_s], resume_s=[resume_s],
+             split=split, s_per_round_resumed=s2, epsilon=h_full.get("epsilon", [None])[-1],
+             **run_facts(full, h_full))
     return {k: c_full[k] + c1[k] + c2[k] for k in KERNEL_COUNTS}
 
 
-def api_plain(torch, wire, reparam, label, spec, per_round, want_total):
-    """``spec`` run whole through the API: bytes, a finite ELBO, launches."""
+def api_plain(torch, wire, reparam, label, spec, per_round, want_total, on_round=None):
+    """``spec`` run whole through the API: bytes (as :func:`bytes_check`), a
+    finite ELBO, launches."""
     from repro_torch.federated.api import build
 
     exp = build(spec, device=DEVICE)
-    h, counts, round_s = api_rounds(torch, wire, reparam, exp, spec.rounds)
-    totals = [u + d for u, d in zip(h["bytes_up"], h["bytes_down"], strict=True)]
-    assert totals == [want_total] * spec.rounds, (label, totals)
+    h, counts, round_s = api_rounds(torch, wire, reparam, exp, spec.rounds, on_round)
+    bytes_check(label, want_total)(h)
     assert all(math.isfinite(e) for e in h["elbo_trace"]), label
     check_launches(label, counts, per_round, spec.rounds)
-    api_line(label, spec.rounds, round_s, want_total, counts, elbo=h["elbo"])
+    api_line(label, spec.rounds, round_s, counts=counts, elbo=h["elbo"], **run_facts(exp, h))
     return counts
 
 
@@ -1829,6 +1921,480 @@ def experiment_api_runs(torch, wire, reparam):
             2, (1, 1, 0, NS_ROOTS_PER_MERGE), 2 * GLMM_J * 4 * 20, work / "glmm"))
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    return totals
+
+
+# ---------------------------------------------------------------------------
+# Phase 3d: buffered-async flushes, silo churn, the posterior endpoint
+# ---------------------------------------------------------------------------
+
+CHURN_RATES = {"arrival_rate": 0.6, "departure_rate": 0.2, "return_rate": 0.5, "seed": 3}
+# hier_bnn for the churn run and its endpoint: 50 test images a silo, so
+# that the 4 silos present at round 0 already hold the 200 predict serves.
+CHURN_HIER = {**HIER_KWARGS, "test_per_silo": 50}
+SERVE_QUERIES = 48  # sample queries of n = 32 over the live silos, + 1 global
+SERVE_N, SERVE_REPEATS, PREDICT_IMAGES, PREDICT_N = 32, 16, 200, 8
+
+
+def spec_3d(model, kwargs, J, rounds, K, buffer_size=None, latency="straggler",
+            population=None, global_family=None, **scenario):
+    """An SFVI-Avg ``ExperimentSpec`` on the fused wire (``api_spec``'s), with
+    an async block when ``buffer_size`` is set and a population if given."""
+    from repro_torch.federated.population import PopulationSpec
+    from repro_torch.federated.scheduler import AsyncConfig
+
+    acfg = None if buffer_size is None else AsyncConfig(buffer_size=buffer_size,
+                                                        latency=latency)
+    spec = api_spec(model, kwargs, "sfvi_avg", J, rounds, K, global_family=global_family,
+                    async_cfg=acfg, **scenario)
+    return dataclasses.replace(
+        spec, population=None if population is None else PopulationSpec(**population))
+
+
+class RunLog:
+    """``on_round`` of a phase-3d run: one line a flush or round (the live
+    J, simulated time, staleness, the combine's weights; with ``initial``,
+    the round's joins, departures and returns read from the population
+    state's change). Keeps the whole run's Experiment (``exp``) and each
+    flush's weights (``weights``)."""
+
+    def __init__(self, label, initial=None):
+        from repro_torch.federated.population import ACTIVE
+
+        self.label, self.exp, self.weights = label, None, []
+        self.prev = None if initial is None else [ACTIVE] * initial
+
+    def __call__(self, exp, r, m):
+        from repro_torch.federated.population import ACTIVE, DEPARTED
+
+        self.exp = exp
+        w = None if "weights" not in m else [float(x) for x in m["weights"]]
+        if w is not None:
+            self.weights.append(w)
+        row = {"run": self.label, "index": r, "J": exp.server.J, "n_active": m["n_active"],
+               "sim_time": m.get("sim_time"), "staleness_max": m.get("staleness"),
+               "weights": w, "bytes": m["bytes_up"] + m["bytes_down"]}
+        if self.prev is not None:
+            old, st = self.prev, exp.population.state
+            moved = list(zip(old, st.status))
+            row.update(joins=list(range(len(old), st.joined)),
+                       departures=[j for j, ab in enumerate(moved) if ab == (ACTIVE, DEPARTED)],
+                       returns=[j for j, ab in enumerate(moved) if ab == (DEPARTED, ACTIVE)])
+            self.prev = list(st.status)
+        print(json.dumps(row), flush=True)
+
+
+def contributions_check(label, up1, down1):
+    """A :func:`bytes_check`: each round's bytes are its contributions x the
+    per-silo bytes."""
+    def check(h):
+        for u, d in zip(h["bytes_up"], h["bytes_down"], strict=True):
+            assert u % up1 == 0 and d == u // up1 * down1 and u > 0, (label, u, d)
+    return check
+
+
+def profile_api(torch, label, exp, rounds=2):
+    """``rounds`` more rounds of ``exp`` under torch.profiler: device busy
+    time and idle share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        exp.run(rounds)
+        sync(torch)
+        wall = time.perf_counter() - t0
+    print(json.dumps({"profile": label, "rounds": rounds, **profile_summary(prof, wall)}),
+          flush=True)
+
+
+class PathRecorder:
+    """While the block runs, every call of a wire kernel's wrapper on the card
+    keeps a copy of its inputs and of what the kernel gave the path, so that
+    :meth:`hold` can hold each launch the path made against the plain
+    version on its own inputs: every (J, P) and every instantiation the
+    event loops reach, at their weights. The wrappers still count their
+    launches; :meth:`hold` launches nothing."""
+
+    NAMES = ("fused_upload", "fused_combine", "sqrtm_newton_schulz_fused")
+
+    def __init__(self, torch, wire):
+        self.torch, self.wire, self.calls = torch, wire, []
+        self.orig = {n: getattr(wire, n) for n in self.NAMES}
+
+    def __enter__(self):
+        for name, fn in self.orig.items():
+            setattr(self.wire, name, self._wrap(name, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.orig.items():
+            setattr(self.wire, name, fn)
+
+    def _wrap(self, name, fn):
+        import inspect
+
+        torch, calls, sig = self.torch, self.calls, inspect.signature(fn)
+
+        def keep(v):
+            if isinstance(v, tuple):
+                return tuple(keep(u) for u in v)
+            return v.clone() if isinstance(v, torch.Tensor) else v
+
+        def recorded(*args, **kw):
+            out = fn(*args, **kw)
+            if args[0].is_cuda:
+                bound = sig.bind(*args, **kw)
+                bound.apply_defaults()
+                calls.append((name, {k: keep(v) for k, v in bound.arguments.items()}, keep(out)))
+            return out
+        return recorded
+
+    def hold(self, ref) -> dict:
+        """Each recorded launch against the plain version, with phase 2's
+        tolerances; prints one line per (kernel, shape, mode) and returns
+        {kernel: sorted distinct leading sizes J (B for the root)}."""
+        torch, groups = self.torch, {}
+        for name, kw, out in self.calls:
+            if name == "fused_upload":
+                x = kw.pop("x")
+                want = ref.wire_upload_ref(x, **kw)
+                J, P = x.shape
+                mode = "+".join(m for m, on in [
+                    ("ref", kw["reference"] is not None), ("clip", kw["clip_norm"] is not None),
+                    ("dp", kw["noise_multiplier"] > 0), ("int8", kw["quantize"]),
+                    ("part", bool((kw["mask"] != 1).any()))] if on) or "plain"
+                if kw["quantize"]:
+                    (q, s), (q0, s0) = out, want
+                    step = int((q.int() - q0.int()).abs().max())
+                    mism = int((q != q0).sum())
+                    s_rel = float(((s - s0).abs() / s0.abs()).max())
+                    ok = mism <= max(1, J * P // 1000) and step <= 1 and s_rel <= 1e-6
+                    err = float((q.float() * s[:, None] - q0.float() * s0[:, None]).abs().max())
+                else:
+                    err = float((out - want).abs().max())
+                    ok = err <= 1e-5 * (1.0 + float(want.abs().max()))
+                shape = (J, P)
+            elif name == "fused_combine":
+                x, w, sc, tf = kw["x"], kw["weights"], kw["scales"], kw["trim_frac"]
+                mat = ref.int8_rows_dequant_ref(x, sc) if sc is not None else x
+                want = (ref.masked_weighted_mean_ref(mat, w) if tf is None
+                        else ref.masked_trimmed_mean_ref(mat, w, tf))
+                err = float((out - want).abs().max())
+                ok = err <= 1e-5 * (1.0 + float(want.abs().max()))
+                wl = set(w.tolist())
+                mode = "+".join(m for m, on in [
+                    ("trim" if tf is not None else "mean", True), ("int8", sc is not None),
+                    ("w_not_0_1", bool(wl - {0.0, 1.0})), ("w_above_1", max(wl) > 1.0)] if on)
+                shape = tuple(x.shape)
+            else:
+                mat = kw["mat"]
+                want = ref.newton_schulz_sqrtm_ref(mat, kw["num_iters"])
+                err = float(torch.linalg.norm(out - want) / torch.linalg.norm(want))
+                ok = err <= 1e-4 and bool(torch.isfinite(out).all())
+                mode, shape = f"{kw['num_iters']} steps, rel_fro", tuple(mat.shape)
+            g = groups.setdefault((name, shape, mode), [0, 0.0, True])
+            g[0], g[1], g[2] = g[0] + 1, max(g[1], err), g[2] and ok
+        for (name, shape, mode), (n, err, ok) in sorted(groups.items()):
+            print(f"  phase 3d launch held to its plain version: {name} {shape} {mode}: "
+                  f"{n} launches, max err {err:.3e}, within phase 2's tolerance={ok}", flush=True)
+            assert ok, (name, shape, mode)
+        self.calls.clear()
+        return {k: sorted({shape[0] for (n, shape, _) in groups if n == k}) for k in self.NAMES}
+
+
+class EventLoopClock:
+    """While the block runs, the host clock around the event loops' calls:
+    ``simulate_flush``, ``PopulationEngine.begin_flush`` / ``begin_round``
+    and ``Server.grow_silos`` (which a join calls inside ``begin_*``).
+    :meth:`report` prints them per flush or round and starts over."""
+
+    def __init__(self):
+        from repro_torch.federated import async_engine
+        from repro_torch.federated.population import PopulationEngine
+        from repro_torch.federated.runtime import Server
+
+        self.sinks = {"simulate_flush": [], "begin_flush": [], "begin_round": [],
+                      "grow_silos": []}
+        self.patches = [Patched(async_engine, "simulate_flush", self.sinks["simulate_flush"]),
+                        Patched(PopulationEngine, "begin_flush", self.sinks["begin_flush"]),
+                        Patched(PopulationEngine, "begin_round", self.sinks["begin_round"]),
+                        Patched(Server, "grow_silos", self.sinks["grow_silos"])]
+
+    def __enter__(self):
+        for p in self.patches:
+            p.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        for p in self.patches:
+            p.__exit__(*exc)
+
+    def report(self, label):
+        sk = self.sinks
+        n = len(sk["simulate_flush"]) or len(sk["begin_round"])
+        loop = sum(sk["simulate_flush"]) + sum(sk["begin_flush"]) + sum(sk["begin_round"])
+        row = {"event_loop": label, "flushes_or_rounds": n,
+               "host_us_per_flush_or_round": loop / n * 1e6 if n else None,
+               **{f"{k}_us": {"calls": len(v), "median": statistics.median(v) * 1e6,
+                              "max": max(v) * 1e6} for k, v in sk.items() if v}}
+        print(json.dumps(row), flush=True)
+        for v in sk.values():
+            v.clear()
+
+
+def live_draws(np, torch, exp, seed):
+    """:func:`injected_draws` at the live J of ``exp``, which a join grows."""
+    P = exp.server.wire_spec().dim
+    return lambda r, t: injected_draws(np, torch, exp.server.problem, exp.server.J, P,
+                                       seed)(r, t)
+
+
+def eta_G_gap(torch, a, b) -> float:
+    """The largest |a - b| over two Servers' η_G leaves."""
+    from repro_torch.tree import tree_leaves
+
+    return max(float((x.cpu() - y.cpu()).abs().max())
+               for x, y in zip(tree_leaves(a.state["eta_G"]), tree_leaves(b.state["eta_G"]),
+                               strict=True))
+
+
+def event_loops_cuda_vs_cpu(np, torch):
+    """Phase 3d (f): the event loops on the card against the same spec on
+    the CPU, on one injected stream, the card started from the CPU's
+    state: the smoke config's async + DP row and its async churn (6
+    flushes each) and hier_bnn's churn at phase 2b's small width (4
+    rounds, J 4 -> 7), held to phase 2b's tolerances; bytes, simulated
+    times, staleness, active counts and both engine states exactly equal.
+    hier_bnn's churn at §4.1 width too, its ELBO held to 1e-3: its η_G
+    gap is printed beside the CPU's own gap when η_G starts one float32
+    step away (the warm-started joins make that state ill-conditioned)."""
+    from repro_torch.federated.api import build
+    from repro_torch.tree import tree_leaves, tree_map
+
+    smoke = {"n_per": SMOKE_N, "in_dim": SMOKE_DIM}
+    pop = {"initial": 4, **CHURN_RATES}
+    small = {"in_dim": 16, "hidden": 8, "train_per_silo": 20}
+    runs = [
+        ("smoke SFVI-Avg async(B=2) dp(z=0.3,C=0.3)",
+         spec_3d("multinomial", smoke, SMOKE_J, 6, SMOKE_K, buffer_size=2, dp_noise=0.3,
+                 dp_clip=0.3), 21, True),
+        ("smoke SFVI-Avg async(B=2) churn(2 of 4)",
+         spec_3d("multinomial", smoke, SMOKE_J, 6, SMOKE_K, buffer_size=2,
+                 population={"initial": 2, **CHURN_RATES}), 22, True),
+        ("hier_bnn small SFVI-Avg churn(4 of 10)",
+         spec_3d("hier_bnn", small, MAIN_J, 4, 4, population=pop), 23, True),
+        ("hier_bnn SFVI-Avg churn(4 of 10)",
+         spec_3d("hier_bnn", CHURN_HIER, MAIN_J, 4, 4, population=pop), 23, False),
+    ]
+    for label, spec, seed, strict in runs:
+        t0 = time.perf_counter()
+        exps = {"cpu": build(spec, device="cpu"), DEVICE: build(spec, device=DEVICE)}
+        if not strict:
+            exps["cpu+1ulp"] = build(spec, device="cpu")
+            exps["cpu+1ulp"].server.state["eta_G"] = tree_map(
+                lambda x: x * (1.0 + 2.0 ** -23), exps["cpu"].server.state["eta_G"])
+        for a, b in zip(tree_leaves(exps["cpu"].bundle.datas),
+                        tree_leaves(exps[DEVICE].bundle.datas), strict=True):
+            assert torch.equal(a, b.cpu()), label
+        exps[DEVICE].server.state = tree_map(lambda x: x.to(DEVICE), exps["cpu"].server.state)
+        hist = {k: e.run(spec.rounds, draws=live_draws(np, torch, e, seed))
+                for k, e in exps.items()}
+        if strict:
+            hold_to_cpu(np, f"{label}, {spec.rounds} rounds", hist["cpu"], hist[DEVICE],
+                        exps["cpu"].server, exps[DEVICE].server)
+        else:
+            e_c, e_g = (np.asarray(hist[k]["elbo_trace"]) for k in ("cpu", DEVICE))
+            rel = float(np.max(np.abs(e_c - e_g) / np.abs(e_c)))
+            print(json.dumps({"card_vs_cpu": label, "rounds": spec.rounds, "elbo_max_rel": rel,
+                              "eta_G_max_abs": eta_G_gap(torch, exps[DEVICE].server,
+                                                         exps["cpu"].server),
+                              "cpu_eta_G_max_abs_after_1ulp_start": eta_G_gap(
+                                  torch, exps["cpu+1ulp"].server, exps["cpu"].server)}),
+                  flush=True)
+            assert np.all(np.isfinite(e_g)) and rel <= 1e-3, (label, rel)
+        for key in ("bytes_up", "bytes_down", "sim_time", "staleness", "n_active"):
+            assert hist["cpu"].get(key) == hist[DEVICE].get(key), (label, key)
+        assert engine_states(exps["cpu"]) == engine_states(exps[DEVICE]), label
+        assert exps["cpu"].server.J == exps[DEVICE].server.J, label
+        print(f"  {label}: J {spec.population.initial if spec.population else SMOKE_J} -> "
+              f"{exps[DEVICE].server.J}, n_active {hist[DEVICE]['n_active']}, engine states "
+              f"equal, {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def serve_endpoint(torch, wire, reparam, work, live):
+    """Phase 3d (e): the posterior endpoint on the churn run's last checkpoint
+    (``work``, mid-roster), through ``Posterior`` and the serve CLI. The
+    wire kernels are on no serving path (the sampler is plain, as in JAX)."""
+    import contextlib
+    import io
+
+    from repro_torch.federated import serve
+    from repro_torch.models.paper.fixtures import hier_bnn_federation
+
+    post = serve.Posterior.from_checkpoint(str(work), device=DEVICE)
+    J = post.num_silos
+    assert J == live.server.J and post.round == live.round, (J, post.round)
+    queries = ([serve.Query("sample", silo=j % J, n=SERVE_N) for j in range(SERVE_QUERIES)]
+               + [serve.Query("global_sample", n=SERVE_N)])
+    samples = sum(q.n for q in queries)
+
+    def batch(p, seed):
+        ans = p.answer_batch(queries, seed=seed)
+        sync(torch)
+        return ans
+
+    (_, counts) = counted(torch, wire, reparam, lambda: batch(post, 0))  # warm-up
+    assert not any(counts.values()), counts
+    lats = []
+    for rep in range(SERVE_REPEATS):
+        t0 = time.perf_counter()
+        batch(post, rep)
+        lats.append(time.perf_counter() - t0)
+    lat = statistics.median(lats)
+    # The same seed on a second replica of the checkpoint: equal answers.
+    a = batch(post, 7)
+    b = batch(serve.Posterior.from_checkpoint(str(work), device=DEVICE), 7)
+    for x, y in zip(a, b, strict=True):
+        assert torch.equal(x["z_G"], y["z_G"])
+        assert (x["z_L"] is None) == (y["z_L"] is None)
+        assert x["z_L"] is None or torch.equal(x["z_L"], y["z_L"])
+    # Each answer is its slice of its group's one draw.
+    for s in range(J):
+        idx = [i for i, q in enumerate(queries) if q.kind == "sample" and q.silo == s]
+        grouped = post.sample(s, n=SERVE_N * len(idx), seed=7)
+        for k, i in enumerate(idx):
+            for key in ("z_G", "z_L"):
+                assert torch.equal(a[i][key], grouped[key][k * SERVE_N:(k + 1) * SERVE_N])
+    assert torch.equal(a[-1]["z_G"], post.global_sample(SERVE_N, seed=7)) and a[-1]["z_L"] is None
+    # predict on each live silo's own test images: the first 200 in silo
+    # order, and each silo's accuracy beside the run's eval (which averages
+    # the posterior mean's accuracy over the live silos).
+    _, _, test = hier_bnn_federation(seed=0, num_silos=live.spec.num_silos,
+                                     device=torch.device(DEVICE), **CHURN_HIER)
+    hits = []
+    t0 = time.perf_counter()
+    for j in range(J):
+        logits = post.predict(j, test[j]["x"], n=PREDICT_N, seed=1)
+        hits.append((torch.argmax(logits, -1) == test[j]["y"].long()).float())
+    sync(torch)
+    predict_s = time.perf_counter() - t0
+    first = torch.cat(hits)[:PREDICT_IMAGES]
+    assert first.numel() == PREDICT_IMAGES, first.numel()
+    # The CLI once on the same directory, against the API's answers.
+    cli_q = [{"kind": "sample", "silo": J - 1, "n": 2}, {"kind": "global_sample", "n": 2}]
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = serve.main(["--device", DEVICE, "--ckpt-dir", str(work), "--queries",
+                         json.dumps(cli_q)])
+    cli_s = time.perf_counter() - t0
+    payload = json.loads(out.getvalue())
+    want = post.answer_batch([serve.Query.from_dict(q) for q in cli_q])
+    assert rc == 0 and payload["num_silos"] == J and payload["round"] == live.round
+    assert payload["answers"][0]["z_L"] == want[0]["z_L"].cpu().tolist()
+    assert payload["answers"][1] == {"z_G": want[1]["z_G"].cpu().tolist(), "z_L": None}
+    row = {"serving": "hier_bnn churn checkpoint", "round": post.round, "live_silos": J,
+           "queries": len(queries), "samples": samples, "repeats": SERVE_REPEATS,
+           "median_ms": lat * 1e3, "ms": [t * 1e3 for t in lats],
+           "queries_per_s": len(queries) / lat, "samples_per_s": samples / lat,
+           "predict_images": PREDICT_IMAGES, "predict_n": PREDICT_N,
+           "predict_acc": float(first.mean()),
+           "predict_acc_per_silo": [float(h.mean()) for h in hits],
+           "predict_ms_all_silos": predict_s * 1e3, "run_eval": live.evaluate(),
+           "cli_s": cli_s, "cli_answers": len(payload["answers"])}
+    print(json.dumps(row), flush=True)
+    return row
+
+
+def async_churn_serve_runs(np, torch, wire, reparam, ref):
+    """Phase 3d: buffered-async flushes and silo churn through
+    ``repro_torch.federated.api`` on the fused wire, every launch of them
+    held against its plain version, the posterior endpoint, then the event
+    loops on the card against the CPU; returns the summed launch counts."""
+    totals = {k: 0 for k in KERNEL_COUNTS}
+
+    def add(counts):
+        for k in totals:
+            totals[k] += counts[k]
+
+    work = ROOT / "build" / "phase3d"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    smoke = {"n_per": SMOKE_N, "in_dim": SMOKE_DIM}
+    Js, Ks, R = SMOKE_J, SMOKE_K, SMOKE_ROUNDS
+    Ps = 2 + 2 * (10 * SMOKE_DIM + 10)  # the smoke wire row: θ and η_G = (mu, log_sigma)
+    try:
+        with PathRecorder(torch, wire) as rec, EventLoopClock() as clock:
+            # (a) the smoke config's two async rows (benchmarks/baseline.json).
+            label = "smoke SFVI-Avg async(B=2,straggler,d=0.5)"
+            log = RunLog(label)
+            add(api_plain(torch, wire, reparam, label,
+                          spec_3d("multinomial", smoke, Js, R, Ks, buffer_size=2),
+                          (1, 3, 0, 0), 63_072, on_round=log))
+            assert log.exp.comm.sim_seconds == 28.0, log.exp.comm.sim_seconds
+            clock.report(label)
+            label = "smoke SFVI-Avg async int8 dp(z=0.3,C=0.3)"
+            log = RunLog(label)
+            add(api_save_resume(
+                torch, wire, reparam, label,
+                spec_3d("multinomial", smoke, Js, R, Ks, buffer_size=2, compression="int8",
+                        dp_noise=0.3, dp_clip=0.3),
+                12, (1, 3, 0, 0), 39_428, work / "smoke_async", want_eps=254.6345,
+                on_round=log))
+            assert log.exp.comm.sim_seconds == 28.0, log.exp.comm.sim_seconds
+            clock.report(label)
+            # (b) hier_bnn at §4.1 width: B = 3, int8 + trimmed + DP, 6 flushes.
+            label = "hier_bnn SFVI-Avg async(B=3) int8 trimmed dp"
+            log = RunLog(label)
+            add(api_plain(
+                torch, wire, reparam, label,
+                spec_3d("hier_bnn", HIER_KWARGS, MAIN_J, 6, 4, buffer_size=3,
+                        compression="int8", aggregator="trimmed", trim_frac=0.1,
+                        dp_noise=0.3, dp_clip=0.3),
+                (1, 2, 0, 0), 3 * ((MAIN_P + 4) + 4 * MAIN_P), on_round=log))
+            assert any(w not in (0.0, 1.0) for ws in log.weights for w in ws), log.weights
+            profile_api(torch, label, log.exp)
+            clock.report(label)
+            # (c) GLMM + Cholesky, B = 2, lognormal: the roots under flush weights.
+            label = "glmm+cholesky SFVI-Avg async(B=2,lognormal)"
+            log = RunLog(label)
+            add(api_plain(
+                torch, wire, reparam, label,
+                spec_3d("glmm", {"num_children": GLMM_CHILDREN}, GLMM_J, 3, GLMM_K,
+                        buffer_size=2, latency="lognormal", global_family="cholesky"),
+                (1, 1, 0, NS_ROOTS_PER_MERGE), 2 * 2 * 4 * 20, on_round=log))
+            profile_api(torch, label, log.exp)
+            clock.report(label)
+            # (d) churn at full width: hier_bnn, a roster of 10 from 4, warm starts.
+            label = "hier_bnn SFVI-Avg churn(4 of 10)"
+            churn = RunLog(label, initial=4)
+            add(api_save_resume(
+                torch, wire, reparam, label,
+                spec_3d("hier_bnn", CHURN_HIER, MAIN_J, 8, 4,
+                        population={"initial": 4, **CHURN_RATES}),
+                4, (1, 2, 0, 0), contributions_check(label, 4 * MAIN_P, 4 * MAIN_P),
+                work / "churn", on_round=churn))
+            clock.report(label)
+            live = churn.exp
+            live.save(str(work / "churn"))
+            assert live.population.state.joined > 4, live.population.state
+            label = "smoke SFVI-Avg async(B=2) churn(2 of 4)"
+            add(api_save_resume(
+                torch, wire, reparam, label,
+                spec_3d("multinomial", smoke, Js, 10, Ks, buffer_size=2,
+                        population={"initial": 2, **CHURN_RATES}),
+                5, (1, 3, 0, 0), contributions_check(label, 4 * Ps, 4 * Ps),
+                work / "smoke_churn", on_round=RunLog(label, initial=2)))
+            clock.report(label)
+        # Every launch above against its plain version, on its own inputs.
+        sizes = rec.hold(ref)
+        print(json.dumps({"phase_3d_kernel_sizes": sizes}), flush=True)
+        # (e) the endpoint on (d)'s last step.
+        serve_endpoint(torch, wire, reparam, work / "churn", live)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    # (f) the event loops on the card against the CPU.
+    event_loops_cuda_vs_cpu(np, torch)
     return totals
 
 
@@ -2494,6 +3060,13 @@ def main(timings_only: bool = False) -> int:
     for k in totals:
         totals[k] += api_totals[k]
     lap("3c experiment API")
+    print("phase 3d: buffered-async flushes, silo churn and the posterior endpoint on the "
+          "fused wire", flush=True)
+    d_totals = async_churn_serve_runs(np, torch, wire, reparam, ref)
+    for k in totals:
+        totals[k] += d_totals[k]
+    print(json.dumps({"phase_3d_launches": d_totals}), flush=True)
+    lap("3d async, churn, serving")
     print("phase 3b: backbone serve runs at full width (bf16)", flush=True)
     bb_totals, serve_results = serve_runs(torch, [attention, gla, rmsnorm], [wire, reparam])
     for res in serve_results:

@@ -1,4 +1,11 @@
 """Core SFVI machinery of the port: families, model contract, objectives."""
+from repro_torch.core.amortized import (
+    encode,
+    encoder_init,
+    encoder_warm_init,
+    log_q_local,
+    sample_local,
+)
 from repro_torch.core.elbo import (
     elbo_objective,
     elbo_value,
@@ -43,12 +50,17 @@ __all__ = [
     "elbo_objective",
     "elbo_value",
     "empty_theta",
+    "encode",
+    "encoder_init",
+    "encoder_warm_init",
     "eps_shape",
     "family_names",
     "get_family",
     "is_conditional",
     "iwae_objective",
     "iwae_value",
+    "log_q_local",
+    "sample_local",
     "stl_objective",
     "supports_moments",
 ]

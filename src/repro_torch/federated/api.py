@@ -1,7 +1,6 @@
 """One declarative experiment API: spec → build → run → save → resume.
 
-The port of ``repro.federated.api``, for its synchronous single-device
-path:
+The port of ``repro.federated.api`` on one device:
 
   * :class:`ExperimentSpec` — a frozen dataclass tree (model reference +
     kwargs, silos, rounds × local steps, optimizers, a
@@ -19,18 +18,22 @@ path:
     optimizer; one ``step_NNNNNNNN.silo_JJJJ.msgpack`` per silo with
     η_{L_j} and its optimizer (when Z_L ≠ ∅) and the strategy's site
     state (PVI, federated EP); ``step_NNNNNNNN.meta.json`` with the round,
-    the communication meter, the wire layout and the float64 RDP ledger.
-    Every random stream of the runtime (the draws, the participation
-    masks, the DP noise) is a function of (seed, absolute round), so a
-    resumed run replays the uninterrupted run's rounds bit for bit, and a
-    directory saved by either package resumes in the other.
+    the communication meter, the wire layout, the float64 RDP ledger and,
+    when they run, the async event loop's ``BufferState`` and the
+    ``PopulationState``. Every random stream of the runtime (the draws, the
+    participation masks, the DP noise, the latency and churn events) is a
+    function of (seed, absolute round), so a resumed run replays the
+    uninterrupted run's rounds bit for bit, and a directory saved by either
+    package resumes in the other.
 
+A scenario with an ``async_cfg`` runs its rounds as buffered-async flushes
+(:func:`~repro_torch.federated.async_engine.run_buffered`); a ``population``
+churns the silos (:class:`~repro_torch.federated.population.PopulationEngine`).
 What the port does not run yet is refused at :func:`build`, naming the
 ROADMAP item that brings it: more than one device or process in
 ``runtime.mesh`` (Queue 1 item 5), ``runtime.sanitize`` (JAX trace
-machinery, Queue 1 item 6), ``scenario.async_cfg`` and ``population``
-(Queue 1 item 4). ``runtime.wire == "legacy"`` (the reference's per-leaf
-wire) is not ported (Queue 1 item 6).
+machinery, Queue 1 item 6). ``runtime.wire == "legacy"`` (the reference's
+per-leaf wire) is not ported (Queue 1 item 6).
 """
 from __future__ import annotations
 
@@ -44,7 +47,12 @@ import torch
 
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.core.family import FamilySpec
-from repro_torch.federated.population import PopulationSpec
+from repro_torch.federated.async_engine import BufferState, run_buffered
+from repro_torch.federated.population import (
+    PopulationEngine,
+    PopulationSpec,
+    PopulationState,
+)
 from repro_torch.federated.scheduler import RoundScheduler, Scenario
 from repro_torch.federated.strategy import StrategySpec
 from repro_torch.launch.mesh import MeshSpec
@@ -236,12 +244,6 @@ def _refuse_unported(spec: ExperimentSpec, wire: str) -> None:
         raise NotImplementedError(
             "runtime.sanitize is the reference's JAX trace machinery, left "
             "unported (ROADMAP Queue 1 item 6)")
-    if spec.scenario.async_cfg is not None:
-        raise NotImplementedError(
-            "scenario.async_cfg: buffered-async execution is ROADMAP Queue 1 item 4")
-    if spec.population is not None:
-        raise NotImplementedError(
-            "population: dynamic silo populations are ROADMAP Queue 1 item 4")
 
 
 def build(spec: ExperimentSpec, bundle=None, *, device=None) -> Experiment:
@@ -255,7 +257,18 @@ def build(spec: ExperimentSpec, bundle=None, *, device=None) -> Experiment:
     return _build(spec, bundle, spec.runtime.wire, device)
 
 
-def _build(spec: ExperimentSpec, bundle, wire: str, device) -> Experiment:
+def _bundle_num_obs(bundle) -> List[int]:
+    """Per-silo N_j of the whole staged roster."""
+    if bundle.num_obs is not None:
+        return [int(n) for n in bundle.num_obs]
+    return [int(tree_leaves(d)[0].shape[0]) for d in bundle.datas]
+
+
+def _build(spec: ExperimentSpec, bundle, wire: str, device,
+           joined: Optional[int] = None) -> Experiment:
+    """The core of :func:`build`. Under a population the Server holds the
+    silos joined so far: ``spec.population.initial``, or ``joined`` (the
+    checkpoint's head-count) on resume."""
     from repro_torch.device import generator, resolve_device
     from repro_torch.federated.runtime import Server
     from repro_torch.models.paper.registry import apply_family_spec, get_model
@@ -283,10 +296,15 @@ def _build(spec: ExperimentSpec, bundle, wire: str, device) -> Experiment:
     problem = bundle.problem
     has_local = problem.model.has_local
     local_spec = spec.local_opt if spec.local_opt is not None else spec.server_opt
+    pop = spec.population
+    j_live = spec.num_silos
+    if pop is not None:
+        j_live = int(joined) if joined is not None else min(pop.initial, spec.num_silos)
+    num_obs_full = _bundle_num_obs(bundle)
     server = Server(
-        problem, bundle.datas, bundle.theta0,
+        problem, bundle.datas[:j_live], bundle.theta0,
         problem.global_family.init(generator(spec.seed, device)),
-        num_obs=bundle.num_obs,
+        num_obs=num_obs_full[:j_live],
         server_opt=spec.server_opt.build(),
         local_opt=local_spec.build() if has_local else None,
         aggregator=spec.scenario.make_aggregator(),
@@ -296,10 +314,16 @@ def _build(spec: ExperimentSpec, bundle, wire: str, device) -> Experiment:
         privacy=spec.scenario.privacy(),
         seed=spec.seed,
         strategy=strategy,
+        # The estimators scale by the roster's width and total N: absent
+        # silos are non-participants of the whole federation.
+        federation_size=spec.num_silos,
+        federation_obs=float(sum(num_obs_full)),
         device=device,
     )
-    return Experiment(spec, bundle, server, spec.scenario.scheduler(spec.num_silos,
-                                                                    seed=spec.seed))
+    population = None if pop is None else PopulationEngine(pop, bundle, spec.num_silos)
+    return Experiment(spec, bundle, server,
+                      spec.scenario.scheduler(spec.num_silos, seed=spec.seed),
+                      population=population)
 
 
 # ---------------------------------------------------------------------------
@@ -312,16 +336,22 @@ class Experiment:
 
     Construct through :func:`build` (or :meth:`resume`); drive with
     :meth:`run`. ``history`` accumulates across calls; ``round`` is the
-    absolute number of rounds completed so far.
+    absolute number of rounds (async: flushes) completed so far.
+    ``population`` churns the silos between rounds (None: a fixed
+    federation); ``async_state`` is the async event loop's state (None
+    until the first flush, or restored by :meth:`resume`).
     """
 
-    def __init__(self, spec: ExperimentSpec, bundle, server, scheduler: RoundScheduler):
+    def __init__(self, spec: ExperimentSpec, bundle, server, scheduler: RoundScheduler,
+                 population: Optional[PopulationEngine] = None):
         self.spec = spec
         self.bundle = bundle
         self.server = server
         self.scheduler = scheduler
+        self.population = population
         self.round = 0
         self.history: Dict[str, list] = {}
+        self.async_state: Optional[BufferState] = None
 
     @property
     def theta(self) -> PyTree:
@@ -366,7 +396,9 @@ class Experiment:
         index, after ``self.round`` is brought up to date (so a callback may
         :meth:`save` mid-run); with ``eval_every`` the registry's eval
         metrics join the round's metrics and ``history["eval"]``. ``draws``
-        injects the randomness (``Server.run``).
+        injects the randomness (``Server.run``). With an async block the
+        rounds are flushes of :func:`~repro_torch.federated.async_engine.run_buffered`,
+        whose state lives on ``self.async_state``.
         """
         n = self.remaining_rounds if rounds is None else rounds
         if n <= 0:
@@ -384,8 +416,21 @@ class Experiment:
             if callback is not None:
                 callback(r, metrics)
 
-        chunk = self.server.run(n, local_steps=spec.local_steps, scheduler=self.scheduler,
-                                callback=cb, start_round=start, draws=draws)
+        acfg = spec.scenario.async_cfg
+        if acfg is not None:
+            # Made before the loop, which mutates it in place: a callback
+            # that saves mid-run checkpoints the live event loop.
+            if self.async_state is None:
+                self.async_state = BufferState.init(self.server.J, acfg, self.server.seed)
+            chunk, self.async_state = run_buffered(
+                self.server, n, acfg, local_steps=spec.local_steps, start_flush=start,
+                state=self.async_state, callback=cb, population=self.population,
+                draws=draws)
+        else:
+            chunk = self.server.run(n, local_steps=spec.local_steps,
+                                    scheduler=self.scheduler, callback=cb,
+                                    start_round=start, draws=draws,
+                                    population=self.population)
         for k, v in chunk.items():
             self.history.setdefault(k, []).extend(v)
         self.round = start + n
@@ -412,6 +457,10 @@ class Experiment:
             # JSON floats round-trip the float64 ledger exactly.
             meta["acct"] = {"rdp": [float(x) for x in np.asarray(acct["rdp"])],
                             "steps": int(acct["steps"])}
+        if self.async_state is not None:
+            meta["async_state"] = self.async_state.state_dict()
+        if self.population is not None:
+            meta["population"] = self.population.state.state_dict()
         return meta
 
     @staticmethod
@@ -466,8 +515,10 @@ class Experiment:
         checkpoint's wire layout (the registry re-stages the data from the
         spec's seed, unless a ``bundle`` is given), then restores θ, η_G,
         the stacked silo state, both optimizers, the communication meter,
-        the RDP ledger and the round index of the latest (or ``step``)
-        checkpoint. A silo with no shard on disk keeps its fresh init.
+        the RDP ledger, the round index and, where saved, the async event
+        loop and the population of the latest (or ``step``) checkpoint. A
+        population run is rebuilt at the saved head-count. A silo with no
+        shard on disk keeps its fresh init.
         """
         if spec is None:
             spec = ExperimentSpec.load(os.path.join(directory, _SPEC_FILE))
@@ -478,7 +529,11 @@ class Experiment:
             raise FileNotFoundError(f"no checkpoints under {directory!r}")
         with open(cls._meta_path(directory, step)) as f:
             meta = json.load(f)
-        exp = _build(spec, bundle, meta.get("wire", spec.runtime.wire), device)
+        pop_meta = meta.get("population")
+        exp = _build(spec, bundle, meta.get("wire", spec.runtime.wire), device,
+                     joined=None if pop_meta is None else int(pop_meta["joined"]))
+        if exp.population is not None and pop_meta is not None:
+            exp.population.state = PopulationState.from_state(pop_meta)
         state = exp.server.state
         restored = mgr.restore(step, {k: state[k] for k in _SERVER_KEYS})
         state.update(restored)
@@ -496,6 +551,8 @@ class Experiment:
         if exp.accountant is not None and "acct" in meta:
             exp.accountant.load_state({"rdp": np.asarray(meta["acct"]["rdp"], np.float64),
                                        "steps": int(meta["acct"]["steps"])})
+        if "async_state" in meta:
+            exp.async_state = BufferState.from_state(meta["async_state"])
         return exp
 
 

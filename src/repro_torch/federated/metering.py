@@ -35,9 +35,9 @@ def tree_bytes(tree: PyTree) -> int:
 class CommMeter:
     """Algorithm-level bytes-on-wire accounting (host side, per round).
 
-    ``sim_seconds`` is the simulated wall-clock of the reference's async
-    latency model; the port's synchronous rounds leave it at zero, and it
-    rides the checkpoint's meter so the two packages' files agree.
+    ``sim_seconds`` accumulates the simulated wall-clock between the
+    buffered-async engine's flushes (``async_engine.run_buffered``);
+    synchronous rounds leave it at zero.
     """
 
     rounds: int = 0
@@ -45,11 +45,12 @@ class CommMeter:
     bytes_down: int = 0  # server -> silo broadcast
     sim_seconds: float = 0.0  # simulated wall-clock (async latency model)
 
-    def record(self, up: int, down: int) -> None:
-        """Log one round's realized (up, down) bytes."""
+    def record(self, up: int, down: int, sim_seconds: float = 0.0) -> None:
+        """Log one round's realized (up, down) bytes [+ simulated time]."""
         self.rounds += 1
         self.bytes_up += int(up)
         self.bytes_down += int(down)
+        self.sim_seconds += float(sim_seconds)
 
     @property
     def total(self) -> int:

@@ -24,7 +24,17 @@ every run is serializable and resumable:
 ordering); ``--strategy``/``--strategy-kwargs`` select one with
 hyperparameters (``--strategy pvi --strategy-kwargs '{"damping": 0.2}'``).
 ``--sweep`` walks the scenario matrix (participation × stragglers ×
-compression × DP) and prints an ELBO/ε/bytes table.
+compression × DP, and with ``--async`` the async axis) and prints an
+ELBO/ε/bytes table.
+
+Buffered-async execution (FedBuff-style flushes; SFVI-Avg unless
+``--strategy`` names another round-cadence strategy) and silo churn:
+
+    ... --async --buffer-size 2 --staleness-decay 0.5 --latency lognormal
+    ... --population '{"initial": 2, "arrival_rate": 0.6, "seed": 3}'
+
+An async flush's line adds its simulated time ``t=`` and its largest
+staleness ``stale<=``.
 
 Runs on ``cuda`` by default (``--device cpu`` for the CPU, where the fused
 wire takes the kernels' plain versions). ``--wire`` defaults to ``fused``
@@ -33,9 +43,9 @@ is ``flat``) is kept by ``--spec`` and ``--resume``. ``--global-family`` /
 ``--local-family`` swap the model's variational families for registered
 ones. A model without an eval hook prints no eval line.
 
-The reference's ``--async*``, ``--population``, ``--mesh``, ``--devices``,
-``--sanitize`` and multi-process flags are accepted at their defaults;
-set otherwise they are refused with the ROADMAP item that brings them.
+The reference's ``--mesh``, ``--devices``, ``--sanitize`` and
+multi-process flags are accepted at their defaults; set otherwise they
+are refused with the ROADMAP item that brings them.
 """
 from __future__ import annotations
 
@@ -83,13 +93,19 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--compress", default="none", choices=["none", "int8"])
     ap.add_argument("--eta-mode", default="barycenter", choices=["barycenter", "param"])
     ap.add_argument("--async", dest="async_mode", action="store_true",
-                    help="buffered-async execution (not ported: ROADMAP Queue 1 item 4)")
-    ap.add_argument("--buffer-size", type=int, default=2)
-    ap.add_argument("--staleness-decay", type=float, default=0.5)
+                    help="buffered-asynchronous execution (FedBuff-style flushes; "
+                         "round-cadence strategies only)")
+    ap.add_argument("--buffer-size", type=int, default=2,
+                    help="with --async: contributions per server flush")
+    ap.add_argument("--staleness-decay", type=float, default=0.5,
+                    help="with --async: weight (1+staleness)^-decay")
     ap.add_argument("--latency", default="lognormal",
-                    choices=["constant", "lognormal", "straggler"])
-    ap.add_argument("--latency-scale", type=float, default=1.0)
-    ap.add_argument("--latency-sigma", type=float, default=0.5)
+                    choices=["constant", "lognormal", "straggler"],
+                    help="with --async: deterministic per-silo latency model")
+    ap.add_argument("--latency-scale", type=float, default=1.0,
+                    help="with --async: median simulated seconds per task")
+    ap.add_argument("--latency-sigma", type=float, default=0.5,
+                    help="with --async: lognormal latency spread")
     ap.add_argument("--dp-noise", type=float, default=0.0,
                     help="Gaussian noise multiplier z (0 = DP off)")
     ap.add_argument("--dp-clip", type=float, default=1.0,
@@ -134,7 +150,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--resume", default=None, metavar="DIR",
                     help="resume a checkpointed run (reads DIR/spec.json)")
     ap.add_argument("--population", default="", metavar="JSON",
-                    help="a PopulationSpec as JSON (ROADMAP Queue 1 item 4)")
+                    help="population dynamics: a PopulationSpec as JSON, e.g. "
+                         '\'{"initial": 2, "arrival_rate": 0.5, "departure_rate": 0.1, '
+                         '"return_rate": 0.5, "seed": 0}\'')
     ap.add_argument("--device", default=None,
                     help="torch device (default cuda; 'cpu' for the CPU)")
     return ap
@@ -209,9 +227,12 @@ def _spec_from_args(args, algorithm: str):
 def _log_round(total_silos: int):
     def log(r, m):
         eps = f"  eps={m['epsilon']:7.3f}" if "epsilon" in m else ""
+        # Async flushes also report their simulated time and staleness.
+        sim = (f"  t={m['sim_time']:8.2f}s  stale<={m['staleness']:.0f}"
+               if "sim_time" in m else "")
         print(f"  round {r:3d}  elbo={m['elbo']:14.2f}  "
               f"up={m['bytes_up']:>9d}B  down={m['bytes_down']:>9d}B  "
-              f"active={m['n_active']}/{total_silos}{eps}", flush=True)
+              f"active={m['n_active']}/{total_silos}{sim}{eps}", flush=True)
     return log
 
 
@@ -219,6 +240,9 @@ def _report(exp) -> None:
     srv, spec = exp.server, exp.spec
     print(f"  total: {srv.comm.total:,} B in {srv.comm.rounds} rounds "
           f"({srv.comm.per_round:,.0f} B/round)")
+    if srv.comm.sim_seconds:
+        print(f"  simulated wall-clock: {srv.comm.sim_seconds:,.1f}s "
+              f"({srv.comm.sim_seconds / max(srv.comm.rounds, 1):.2f}s/flush)")
     if exp.accountant is not None:
         delta = spec.scenario.dp_delta
         eps, order = exp.accountant.epsilon(delta)
@@ -249,6 +273,7 @@ def _run_one(spec, bundle, device, ckpt_dir=None, ckpt_every: int = 0):
     print(f"\n== {algorithm_label(spec.algorithm)}: {spec.model.name}, "
           f"J={spec.num_silos}, {spec.rounds} rounds x {spec.local_steps} local steps, "
           f"wire={exp.server.wire}, device={exp.server.device}"
+          + (f", {sc.async_cfg.name}" if sc.async_cfg is not None else "")
           + (f", DP(z={sc.dp_noise:g}, C={sc.dp_clip:g})" if sc.dp_noise > 0 else "")
           + " ==", flush=True)
     t0 = time.time()
@@ -268,13 +293,17 @@ def _run_sweep(args, base_spec, bundle, device) -> int:
     def floats(s):
         return tuple(float(x) for x in s.split(","))
 
+    # --async adds the async axis (the sync rows stay for comparison; the
+    # matrix drops the invalid async combinations).
+    async_cfg = _async_cfg_from_args(args)
     grid = scenario_matrix(
         algorithms=["sfvi", "sfvi_avg"] if args.algo == "both" else [args.algo],
         participation=floats(args.sweep_participation),
         dropout=floats(args.sweep_dropout),
         compression=tuple(args.sweep_compress.split(",")),
         dp_noise=floats(args.sweep_dp_noise),
-        dp_clip=args.dp_clip, dp_delta=args.dp_delta)
+        dp_clip=args.dp_clip, dp_delta=args.dp_delta,
+        async_cfgs=(None,) if async_cfg is None else (None, async_cfg))
     specs = scenario_specs(base_spec, grid)
     print(f"\n== scenario sweep: {base_spec.model.name}, J={base_spec.num_silos}, "
           f"{len(specs)} scenarios x {base_spec.rounds} rounds ==")

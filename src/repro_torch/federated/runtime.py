@@ -209,6 +209,53 @@ class Server:
     def _resolve(self, algorithm) -> ServerStrategy:
         return self._strategy if algorithm is None else resolve_strategy(algorithm)
 
+    # -- dynamic population growth --------------------------------------------
+
+    def grow_silos(self, datas: Sequence[PyTree], num_obs: Optional[Sequence[int]] = None,
+                   eta_rows: Optional[Sequence[PyTree]] = None) -> None:
+        """Append joining silos to the stacked silo axis, in place.
+
+        The population engine's join path: the new silos' data shards
+        (leaf shapes equal to the federation's) are appended and every
+        stacked tree is rebuilt into new contiguous tensors, the existing
+        rows copied bit for bit. ``eta_rows`` gives each new silo's initial
+        η_L (the amortized warm start); without it the cold family init is
+        drawn from ``generator((seed + 1, j))``, a pure function of (seed,
+        roster index), so a resume re-grows bit for bit. New optimizer
+        moments are fresh; per-silo strategy state keeps its old rows and
+        takes the strategy's init for the new ones (PVI's zero sites).
+        """
+        if not datas:
+            return
+        if eta_rows is not None and len(eta_rows) != len(datas):
+            raise ValueError(
+                f"eta_rows has {len(eta_rows)} entries for {len(datas)} joining silos")
+        dev = self.device
+        old_J = self.J
+        new = list(datas)
+        if num_obs is None:
+            num_obs = [int(tree_leaves(d)[0].shape[0]) for d in new]
+
+        def grown(old, rows):
+            return tree_map(lambda a, b: torch.cat([a, b.to(dev)]), old, rows)
+
+        self.data = grown(self.data, stack_silos(new))
+        self.J = old_J + len(new)
+        self.num_obs = np.concatenate([self.num_obs, np.asarray(list(num_obs), np.float32)])
+        if self._has_local:
+            rows = (list(eta_rows) if eta_rows is not None else
+                    [self.problem.local_family.init(generator((self.seed + 1, j), dev))
+                     for j in range(old_J, self.J)])
+            new_eta = tree_map(lambda x: x.to(dev), stack_silos(rows))
+            self.state["eta_L"] = grown(self.state["eta_L"], new_eta)
+            self.state["opt_local"] = grown(self.state["opt_local"],
+                                            vmap(self._local_opt.init)(new_eta))
+        old_strat = self.state["strategy"]
+        if tree_leaves(old_strat):
+            fresh = self._strategy.init_silo_state(self)
+            self.state["strategy"] = tree_map(
+                lambda f, o: torch.cat([o, f[old_J:]]), fresh, old_strat)
+
     def _ensure_strategy_state(self, strat: ServerStrategy) -> None:
         """Create per-silo strategy state when ``run`` switches to a stateful
         strategy the Server was not built with (restored state is kept)."""
@@ -410,6 +457,7 @@ class Server:
         callback: Optional[Callable[[int, dict], None]] = None,
         start_round: int = 0,
         draws: Optional[Draws] = None,
+        population=None,
     ) -> Dict[str, list]:
         """Advance the federation ``num_rounds`` rounds; returns history.
 
@@ -421,6 +469,12 @@ class Server:
         ``privacy`` the accountant composes one subsampled Gaussian
         mechanism per exchange and ``history["epsilon"]`` traces ε.
         ``draws`` injects the randomness (module docstring).
+
+        ``population`` (a :class:`~repro_torch.federated.population.PopulationEngine`)
+        processes each round's churn first (a join grows J); its presence
+        multiplies the roster-wide scheduler masks sliced to the live J, and
+        its staleness-decayed weights (a returning silo's first round back)
+        become the round's aggregation weights.
         """
         if local_steps < 1:
             raise ValueError(f"local_steps must be >= 1, got {local_steps}")
@@ -445,16 +499,27 @@ class Server:
         for r in range(start_round, start_round + num_rounds):
             ex_idx = ([r * local_steps + t for t in range(local_steps)]
                       if step_cadence else [r])
-            ex_masks = [np.asarray(sched.mask(i), np.float32) for i in ex_idx]
+            present = stale_w = None
+            if population is not None:
+                present, stale_w = population.begin_round(self, r)
+            raw = [np.asarray(sched.mask(i), np.float32) for i in ex_idx]
+            ex_masks, wt_masks = raw, raw
             inv_masks = [np.asarray(invited_fn(i), np.float32) if invited_fn is not None
                          else ex_masks[k] for k, i in enumerate(ex_idx)]
+            if present is not None:
+                # The scheduler stays roster-wide: its masks are sliced to the
+                # joined J, so participation is independent of churn.
+                ex_masks = [m[: self.J] * present for m in raw]
+                wt_masks = [m[: self.J] * stale_w for m in raw]
+                inv_masks = [m[: self.J] * present for m in inv_masks]
             active = [int(np.sum(m)) for m in ex_masks]
             invited = [max(int(np.sum(m)), active[k]) for k, m in enumerate(inv_masks)]
             masks = torch.as_tensor(np.stack(ex_masks), device=self.device)
+            weights = torch.as_tensor(np.stack(wt_masks), device=self.device)
             if step_cadence:
-                elbos = self._step_round(strat, local_steps, masks, masks, r, draws)
+                elbos = self._step_round(strat, local_steps, masks, weights, r, draws)
             else:
-                elbos = self._round_round(strat, local_steps, masks[0], masks[0], r, draws)
+                elbos = self._round_round(strat, local_steps, masks[0], weights[0], r, draws)
             elbos = elbos.detach().cpu().numpy()
             up = sum(active) * up1
             down = sum(invited) * down1

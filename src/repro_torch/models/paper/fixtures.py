@@ -58,9 +58,10 @@ def hier_bnn_federation(
 
 def bnn_posterior_accuracy(bnn: HierBNN, eta_G: dict, eta_L_stacked: dict,
                            test: List[dict]) -> Tuple[float, float]:
-    """Per-silo posterior-mean test accuracy; (mean, std) over silos."""
+    """Per-silo posterior-mean test accuracy; (mean, std) over the live silos
+    (a population run holds fewer rows than the roster's test shards)."""
     accs = []
-    for j in range(len(test)):
+    for j in range(min(len(test), int(eta_L_stacked["mu_bar"].shape[0]))):
         accs.append(float(bnn.accuracy(
             eta_G["mu"], eta_L_stacked["mu_bar"][j], test[j]["x"], test[j]["y"])))
     return float(np.mean(accs)), float(np.std(accs))

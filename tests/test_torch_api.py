@@ -187,9 +187,12 @@ REFUSED = {
     "multiprocess": (dict(runtime=tapi.RuntimeSpec(mesh=tmesh.MeshSpec.parse("multiprocess"))),
                      NotImplementedError, "item 5"),
     "sanitize": (dict(runtime=tapi.RuntimeSpec(sanitize=True)), NotImplementedError, "item 6"),
-    "async": (dict(scenario=tsched.Scenario(async_cfg=tsched.AsyncConfig())),
-              NotImplementedError, "item 4"),
-    "population": (dict(population=tpop.PopulationSpec()), NotImplementedError, "item 4"),
+    # Async and populations run since ROADMAP Queue 1 item 4; what build
+    # still refuses of them is what the reference refuses too.
+    "async": (dict(scenario=tsched.Scenario(async_cfg=tsched.AsyncConfig(buffer_size=4))),
+              ValueError, "buffer_size"),
+    "population": (dict(population=tpop.PopulationSpec(max_silos=4)), ValueError,
+                   "exceeds the staged roster"),
 }
 
 
@@ -197,7 +200,8 @@ REFUSED = {
 def test_build_refuses_what_the_port_lacks(case):
     over, exc, item = REFUSED[case]
     spec = tapi.ExperimentSpec(model=tapi.ModelSpec("toy"), num_silos=3, **over)
-    with pytest.raises(exc, match=f"ROADMAP Queue 1 {item}"):
+    match = f"ROADMAP Queue 1 {item}" if item.startswith("item") else item
+    with pytest.raises(exc, match=match):
         tapi.build(spec, device="cpu")
 
 
@@ -211,12 +215,19 @@ def test_single_device_meshes_build():
 
 
 @pytest.mark.parametrize("flags", [["--devices", "2"], ["--coordinator", "localhost:1"],
-                                   ["--async"], ["--population", '{"initial": 2}'],
+                                   ["--async", "--buffer-size", "3"],
+                                   ["--population", '{"initial": 3}'],
                                    ["--mesh", "silo=2"], ["--sanitize"]])
 def test_cli_refuses_the_multi_device_async_and_population_flags(flags):
+    """The multi-device flags name their ROADMAP item; --async and
+    --population run (Queue 1 item 4), and the CLI refuses, as the
+    reference does, a buffer or an initial population wider than --silos."""
     argv = ["--device", "cpu", "--model", "toy", "--silos", "2", "--rounds", "1",
             "--algo", "sfvi_avg", *flags]
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
+    exc, match = NotImplementedError, "ROADMAP Queue 1 item"
+    if flags[0] in ("--async", "--population"):
+        exc, match = ValueError, "buffer_size" if flags[0] == "--async" else "initial"
+    with pytest.raises(exc, match=match):
         tcli.main(argv)
 
 

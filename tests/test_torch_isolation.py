@@ -37,7 +37,8 @@ def test_port_imports_with_jax_blocked():
                  "kernels.attention", "kernels.gla", "kernels.rmsnorm",
                  "models.backbone.transformer", "launch.serve_backbone",
                  "federated.api", "federated.population", "launch.mesh",
-                 "checkpoint", "checkpoint.io", "federated.run"):
+                 "checkpoint", "checkpoint.io", "federated.run",
+                 "federated.async_engine", "federated.serve", "core.amortized"):
         assert f"repro_torch.{name}" in mods
     code = (
         "import sys, importlib, tempfile, os\n"
@@ -126,3 +127,27 @@ def test_kernel_wrappers_refuse_other_devices():
         gla.gla(q, q, q, torch.zeros((1, 4, 2), device="meta"))
     with pytest.raises(ValueError, match="cuda or cpu"):
         rmsnorm.rmsnorm(q, torch.ones(8, device="meta"))
+
+
+def test_serving_and_async_entry_points_default_to_cuda(monkeypatch, tmp_path):
+    import repro_torch.federated.api as api
+    from repro_torch.federated import serve
+    from repro_torch.federated.population import PopulationSpec
+    from repro_torch.federated.scheduler import AsyncConfig, Scenario
+
+    spec = api.ExperimentSpec(
+        model=api.ModelSpec("toy", {"num_obs": 4}), num_silos=3, rounds=1,
+        scenario=Scenario(async_cfg=AsyncConfig(buffer_size=2)),
+        population=PopulationSpec(initial=2, arrival_rate=1.0))
+    exp = api.build(spec, device="cpu")
+    exp.run()
+    exp.save(str(tmp_path))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        api.build(spec)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        serve.Posterior.from_checkpoint(str(tmp_path))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        serve.main(["--ckpt-dir", str(tmp_path), "--silo", "0"])
+    post = serve.Posterior.from_checkpoint(str(tmp_path), device="cpu")
+    assert post.num_silos == 3 and post.sample(2)["z_G"].device.type == "cpu"
