@@ -63,8 +63,10 @@ non-zero):
      the scalar route, each bf16 output also element by element within
      one bf16 step of the plain value, and on plans where a few blocks
      walk many rows of two to eight warps at scales 2^-12 to 2^12
-     (``RMS_WALKS``, 20 launches each). And the backbone on the
-     card against the backbone on the CPU in f32: zamba2-7b at full width
+     (``RMS_WALKS``, 20 launches each). Flash attention, GLA and RMSNorm
+     each refuse a card input that requires grad while grad mode is on
+     (the kernels have no backward), before any launch. And the backbone
+     on the card against the backbone on the CPU in f32: zamba2-7b at full width
      with one hybrid unit (6 layers), B = 2, prompt 32, greedy gen 4;
   3. the main paths at full width, each through ``Server(wire="fused")``
      with the kernels' launch counters set to 0 just before each run and
@@ -142,7 +144,29 @@ non-zero):
        hier_bnn churn at phase 2b's small width, 4 rounds, to phase 2b's
        tolerances; hier_bnn churn at §4.1 width, 4 rounds, its ELBO to
        1e-3 and its η_G gap beside the CPU's own from a start one float32
-       step away). Then the backbone's serve path
+       step away). Then phase 3e, multi-process federation
+       (``repro_torch.federated.distributed``): each of ``mp_specs()``
+       runs once in this process on the card, then on ranks this script
+       spawns (``--mp-worker``; the kernels are built before any starts,
+       every rank's exit code is checked and each join has a timeout):
+       (a) a 1-rank NCCL world, hier_bnn SFVI-Avg at §4.1 width,
+       bit-identical to the run without a world; (b) 2 gloo ranks sharing
+       the card, 5 silo rows each: hier_bnn SFVI (16,056,640 B up a
+       round) and SFVI-Avg + int8 + trimmed (0.1) + DP (z 0.3, C 0.3)
+       (1,003,580 B), the GLMM + Cholesky SFVI-Avg (1 row a rank, 100 root
+       launches a round a rank), the smoke config's SFVI (504,576 B up +
+       down) and its SFVI-Avg at J = 7 (the silo axis padded to 8), and
+       an owner-routed save → resume → 1 round, bit-exact; (c) 4 gloo
+       ranks on (silo=2, model=2), the smoke SFVI equal to (b)'s bit for
+       bit, ELBO included. The ranks are bit-identical; each run's state
+       equals the one-process card run bit for bit, or (a batched op whose
+       bits depend on its batch count) within 1e-3 relative, its largest
+       gap printed; bytes, ε and each rank's launches equal the
+       one-process run's, and every upload, combine and root launch of a
+       rank is held to its plain version. An ``mp_run`` line a run and
+       world prints s a round and the host ms of the gathers, labelled
+       as ranks time-sliced on one card: the machine has one H100, so no
+       multi-GPU speed is measured. Then the backbone's serve path
      (``repro_torch.launch.serve_backbone.serve``) at full width in bf16,
      with the flash-attention, GLA and RMSNorm launch counters set to 0
      just before each run and read just after (every bf16 flash and GLA
@@ -1264,6 +1288,29 @@ def check_backbone_kernels(torch, attention, gla, rmsnorm, ref, gen):
 # ---------------------------------------------------------------------------
 
 
+def check_grad_guard(torch, attention, gla, rmsnorm, gen):
+    """Each backbone wrapper refuses a card input that requires grad while
+    grad mode is on (the kernels have no backward), before any launch."""
+    q = torch.randn((1, 64, 2, 64), generator=gen, device=DEVICE)
+    la = -torch.rand((1, 64, 2), generator=gen, device=DEVICE)
+    w = torch.ones((64,), device=DEVICE)
+    x = q.clone().requires_grad_(True)
+    calls = {"flash_attention": (attention, lambda: attention.flash_attention(x, q, q)),
+             "gla": (gla, lambda: gla.gla(x, q, q, la)),
+             "rmsnorm": (rmsnorm, lambda: rmsnorm.rmsnorm(x, w))}
+    for name, (mod, call) in calls.items():
+        before = dict(mod.LAUNCHES)
+        try:
+            call()
+        except RuntimeError as err:
+            assert f"{name}: the CUDA kernel has no backward" in str(err), err
+        else:
+            raise AssertionError(f"{name} took a card input that requires grad")
+        assert mod.LAUNCHES == before, (name, mod.LAUNCHES)
+        print(f"  {name}: refuses a card input that requires grad, before any launch",
+              flush=True)
+
+
 def greedy(torch, cfg, theta, eta_G, eta_L, tokens, silos, gen_len):
     """Serve prefill + greedy decode; returns (every step's logits, tokens)."""
     from repro_torch.launch import steps as S
@@ -2017,8 +2064,8 @@ class PathRecorder:
 
     NAMES = ("fused_upload", "fused_combine", "sqrtm_newton_schulz_fused")
 
-    def __init__(self, torch, wire):
-        self.torch, self.wire, self.calls = torch, wire, []
+    def __init__(self, torch, wire, phase="3d"):
+        self.torch, self.wire, self.calls, self.phase = torch, wire, [], phase
         self.orig = {n: getattr(wire, n) for n in self.NAMES}
 
     def __enter__(self):
@@ -2095,7 +2142,7 @@ class PathRecorder:
             g = groups.setdefault((name, shape, mode), [0, 0.0, True])
             g[0], g[1], g[2] = g[0] + 1, max(g[1], err), g[2] and ok
         for (name, shape, mode), (n, err, ok) in sorted(groups.items()):
-            print(f"  phase 3d launch held to its plain version: {name} {shape} {mode}: "
+            print(f"  phase {self.phase} launch held to its plain version: {name} {shape} {mode}: "
                   f"{n} launches, max err {err:.3e}, within phase 2's tolerance={ok}", flush=True)
             assert ok, (name, shape, mode)
         self.calls.clear()
@@ -2395,6 +2442,368 @@ def async_churn_serve_runs(np, torch, wire, reparam, ref):
         shutil.rmtree(work, ignore_errors=True)
     # (f) the event loops on the card against the CPU.
     event_loops_cuda_vs_cpu(np, torch)
+    return totals
+
+
+# ---------------------------------------------------------------------------
+# Phase 3e: multi-process federation on one card
+# ---------------------------------------------------------------------------
+
+MP_JOIN_S = 480  # a world's join: a hung gloo world fails the phase, not the run
+MP_WORLD = "ranks time-sliced on one card, not a multi-GPU speed"
+
+
+def mp_specs():
+    """Phase 3e's runs: label -> (spec, bytes up a round). Each runs in one
+    process (no world) and on the ranks of a world, on the fused wire."""
+    smoke = {"n_per": SMOKE_N, "in_dim": SMOKE_DIM}
+    dp = dict(compression="int8", aggregator="trimmed", trim_frac=0.1, dp_noise=0.3,
+              dp_clip=0.3)
+    return {
+        "hier_bnn sfvi": (api_spec("hier_bnn", HIER_KWARGS, "sfvi", MAIN_J, 3, 4), 16_056_640),
+        "hier_bnn sfvi_avg": (api_spec("hier_bnn", HIER_KWARGS, "sfvi_avg", MAIN_J, 3, 4),
+                              4_014_160),
+        "hier_bnn sfvi_avg+int8+trimmed+dp": (
+            api_spec("hier_bnn", HIER_KWARGS, "sfvi_avg", MAIN_J, 3, 4, **dp), 1_003_580),
+        "glmm+cholesky sfvi_avg": (
+            api_spec("glmm", {"num_children": GLMM_CHILDREN}, "sfvi_avg", GLMM_J, 2, GLMM_K,
+                     global_family="cholesky"), GLMM_J * 4 * 20),
+        # The baseline's two mesh rows (benchmarks/baseline.json): 504,576 B
+        # up + down a round, half of it up.
+        "smoke sfvi": (api_spec("multinomial", smoke, "sfvi", SMOKE_J, SMOKE_ROUNDS, SMOKE_K),
+                       504_576 // 2),
+        # J = 7 on 2 ranks pads the silo axis to 8.
+        "smoke sfvi_avg J=7": (api_spec("multinomial", smoke, "sfvi_avg", 7, 3, SMOKE_K),
+                               7 * 4 * 3942),
+    }
+
+
+def state_dump(exp) -> dict:
+    """The replicated state's leaves and each held real row's leaves, on the
+    host: what two runs compare (``state_digests``, ``state_gap``)."""
+    from repro_torch.tree import tree_leaves
+
+    srv, st = exp.server, exp.server.state
+    silo = tree_leaves([st[k] for k in ("eta_L", "opt_local", "strategy")])
+    return {"global": [x.detach().cpu() for x in tree_leaves(
+                [st["theta"], st["eta_G"], st["opt_server"]])],
+            "rows": {j: [x[i].detach().cpu() for x in silo]
+                     for i, j in enumerate(srv.rows) if j < srv.J}}
+
+
+def _digest(leaves) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for x in leaves:
+        h.update(x.contiguous().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def state_digests(dump) -> dict:
+    return {"global": _digest(dump["global"]),
+            "rows": {str(j): _digest(v) for j, v in dump["rows"].items()}}
+
+
+def state_gap(torch, a, b) -> float:
+    """The largest |a - b| / (1 + |b|) over the leaves two dumps share."""
+    pairs = list(zip(a["global"], b["global"], strict=True))
+    for j, leaves in a["rows"].items():
+        pairs += list(zip(leaves, b["rows"][j], strict=True))
+    return max((float(((x.double() - y.double()).abs() / (1 + y.double().abs())).max())
+                for x, y in pairs if x.numel()), default=0.0)
+
+
+def mp_run(torch, wire, reparam, ref, spec, label, work):
+    """One run through the API on this process's mesh, its launches held to
+    their plain versions: its record and its state dump."""
+    from repro_torch.federated import distributed
+    from repro_torch.federated.api import build
+
+    exp = build(spec, device=DEVICE)
+    gather_s = []
+    distributed.reset_gathered()
+    with PathRecorder(torch, wire, phase="3e") as rec, \
+            Patched(distributed, "gather_rows", gather_s), \
+            Patched(distributed, "gather_cols", gather_s):
+        h, counts, round_s = api_rounds(torch, wire, reparam, exp, spec.rounds)
+    rec.hold(ref)
+    dump = state_dump(exp)
+    torch.save(dump, work / f"{label.replace(' ', '_')}.pt")
+    return {"digests": state_digests(dump), "elbo": h["elbo"], "bytes_up": h["bytes_up"],
+            "bytes_total": [u + d for u, d in zip(h["bytes_up"], h["bytes_down"], strict=True)],
+            "epsilon": h.get("epsilon"), "counts": counts, "s_per_round": round_s,
+            "gather_calls_per_round": len(gather_s) / spec.rounds,
+            "gather_host_ms_median": statistics.median(gather_s) * 1e3 if gather_s else 0.0,
+            "bytes_gathered": exp.comm.bytes_gathered,
+            "collective_bytes": dict(distributed.GATHERED), "J_pad": exp.server.J_pad,
+            "rows": exp.server.rows}
+
+
+def batch_count_probe(torch, wire, spec):
+    """Where a run's bits part between one process and rank 0 of a 2-block
+    mesh: the first aten op of round 0, up to the first upload, whose
+    output for rank 0's rows differs between the batch of all J silos and
+    rank 0's batch of J / 2 (``vmap`` batches the silos). Rank 0 is built
+    without a world (its collectives are not reached before the upload).
+    Returns ``(op, input shapes, output shape, max |diff|)``, or None when
+    every op up to the upload agrees bit for bit."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from repro_torch.federated import api
+    from repro_torch.launch.mesh import Mesh
+
+    class Log(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            outs = out if isinstance(out, (tuple, list)) else [out]
+            self.ops.append((str(func), [tuple(a.shape) for a in args
+                                         if isinstance(a, torch.Tensor)],
+                             [o.detach().clone() for o in outs if isinstance(o, torch.Tensor)]))
+            return out
+
+    def round0(half):
+        build_mesh, upload = api.build_mesh, wire.fused_upload
+        if half:
+            api.build_mesh = lambda *a, **k: Mesh(silo=2, model=1, multiprocess=True)
+        try:
+            exp = api.build(spec, device=DEVICE)
+        finally:
+            api.build_mesh = build_mesh
+        log = Log()
+
+        def stop(*a, **k):
+            raise StopIteration  # the round goes no further than its first upload
+
+        wire.fused_upload = stop
+        try:
+            with log:
+                exp.run(1)
+        except StopIteration:
+            pass
+        finally:
+            wire.fused_upload = upload
+        return log.ops
+
+    whole, part = round0(False), round0(True)
+    for (op, shapes, outs), (_, _, pouts) in zip(whole, part, strict=False):
+        for a, b in zip(outs, pouts, strict=False):
+            if a.shape != b.shape:
+                axes = [d for d in range(a.dim())
+                        if a.dim() == b.dim() and a.shape[d] != b.shape[d]]
+                if len(axes) != 1:
+                    continue
+                a = a.narrow(axes[0], 0, b.shape[axes[0]])
+            if a.dtype.is_floating_point and not torch.equal(a, b):
+                return op, shapes, tuple(b.shape), float((a.double() - b.double()).abs().max())
+    return None
+
+
+def mp_worker(task_json: str) -> int:
+    """One rank of a phase-3e world (``--mp-worker``): the world from the
+    env schema, the task's runs on its mesh, one ``MPRESULT`` line."""
+    import torch
+
+    sys.path.insert(0, str(SRC))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.federated import distributed
+    from repro_torch.federated.api import Experiment, RuntimeSpec, build
+    from repro_torch.kernels import ref, reparam, wire
+    from repro_torch.launch.mesh import MeshSpec
+
+    task = json.loads(task_json)
+    distributed.initialize(backend=task["backend"], device=DEVICE)
+    import torch.distributed as dist
+
+    rank = dist.get_rank()
+    runtime = RuntimeSpec(wire="fused", mesh=MeshSpec.from_dict(task["mesh"]))
+    specs = {k: (dataclasses.replace(s, runtime=runtime), up) for k, (s, up)
+             in mp_specs().items()}
+    work = Path(task["work"]) / f"rank{rank}"
+    work.mkdir(parents=True, exist_ok=True)
+    out = {"rank": rank, "backend": dist.get_backend(), "world": dist.get_world_size(),
+           "device": str(distributed.rank_device(DEVICE)), "runs": {}}
+    for label in task["runs"]:
+        out["runs"][label] = mp_run(torch, wire, reparam, ref, specs[label][0], label, work)
+    if task.get("save_resume"):
+        # Owner-routed save -> resume -> 1 round, against the same run whole.
+        spec = specs[task["save_resume"]][0]
+        ckpt = Path(task["work"]) / "ckpt"
+        exp = build(spec, device=DEVICE)
+        exp.run(spec.rounds - 1)
+        t0 = time.perf_counter()
+        exp.save(str(ckpt))
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        res = Experiment.resume(str(ckpt), device=DEVICE)
+        resume_s = time.perf_counter() - t0
+        exp.run(1)
+        res.run(1)
+        a, b = state_dump(exp), state_dump(res)
+        out["resume"] = {"label": task["save_resume"], "round": res.round,
+                         "equal": state_digests(a) == state_digests(b)
+                         and exp.history["elbo"][-1] == res.history["elbo"][-1],
+                         "save_ms": save_s * 1e3, "resume_ms": resume_s * 1e3,
+                         "shards": sorted(p.name for p in ckpt.glob("*.silo_*"))}
+    print("MPRESULT " + json.dumps(out), flush=True)
+    distributed.shutdown()
+    return 0
+
+
+def spawn_world(n, backend, mesh, runs, work, save_resume=None) -> list:
+    """``n`` ranks of ``chip_smoke.py --mp-worker``, spawned here (the kernels
+    are built); every rank's exit code is checked and each join has a
+    timeout. Returns each rank's result, by rank."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    task = json.dumps({"backend": backend, "mesh": mesh.to_dict(), "runs": runs,
+                       "work": str(work), "save_resume": save_resume})
+    env = dict(os.environ, REPRO_COORDINATOR=f"localhost:{port}",
+               REPRO_NUM_PROCESSES=str(n))
+    procs = [subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--mp-worker", task],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                              env=dict(env, REPRO_PROCESS_ID=str(r)), cwd=ROOT)
+             for r in range(n)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=MP_JOIN_S))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    results = []
+    for r, (p, (out, err)) in enumerate(zip(procs, outs, strict=True)):
+        for line in out.splitlines():
+            if line.startswith("  phase 3e"):
+                print(f"  [{backend} rank {r}/{n}]{line[1:]}", flush=True)
+        assert p.returncode == 0, (f"{backend} rank {r}/{n} exited {p.returncode}",
+                                   out[-3000:], err[-6000:])
+        line = [ln for ln in out.splitlines() if ln.startswith("MPRESULT ")][-1]
+        results.append(json.loads(line[len("MPRESULT "):]))
+    assert [res["rank"] for res in results] == list(range(n))
+    return results
+
+
+def multiprocess_runs(np, torch, wire, reparam, ref, card):
+    """Phase 3e: each run in one process on the card, then on the ranks of
+    three worlds spawned here: (a) a 1-rank NCCL world, (b) 2 gloo ranks
+    sharing the card, (c) 4 gloo ranks on (silo=2, model=2). Returns the
+    summed launch counts of every rank's runs."""
+    from repro_torch.launch.mesh import MeshSpec
+
+    totals = {k: 0 for k in KERNEL_COUNTS}
+    work = ROOT / "build" / "phase3e"
+    shutil.rmtree(work, ignore_errors=True)
+    (work / "one").mkdir(parents=True)
+    specs = mp_specs()
+    try:
+        one = {}
+        for label, (spec, want_up) in specs.items():
+            one[label] = mp_run(torch, wire, reparam, ref, spec, label, work / "one")
+            assert one[label]["bytes_up"] == [want_up] * spec.rounds, (label, one[label])
+        assert one["smoke sfvi"]["bytes_total"] == [504_576] * SMOKE_ROUNDS
+        worlds = {
+            "nccl x1": spawn_world(1, "nccl", MeshSpec(silo=1, multiprocess=True),
+                                   ["hier_bnn sfvi_avg"], work / "nccl1"),
+            "gloo x2": spawn_world(2, "gloo", MeshSpec(silo=2, multiprocess=True),
+                                   [k for k in specs if k != "hier_bnn sfvi_avg"],
+                                   work / "gloo2",
+                                   save_resume="hier_bnn sfvi_avg+int8+trimmed+dp"),
+            "gloo x4": spawn_world(4, "gloo", MeshSpec(silo=2, model=2, multiprocess=True),
+                                   ["smoke sfvi"], work / "gloo4"),
+        }
+        for name, ranks in worlds.items():
+            for res in ranks:
+                assert res["backend"] == name[:4], res
+                assert res["device"] == f"cuda:{res['rank'] % torch.cuda.device_count()}", res
+                for label, run in res["runs"].items():
+                    base = one[label]
+                    # Every rank makes the calls of the one-process run.
+                    assert run["counts"] == base["counts"], (name, label, run["counts"])
+                    for k in totals:
+                        totals[k] += run["counts"][k]
+                    assert run["bytes_up"] == base["bytes_up"], (name, label)
+                    assert run["epsilon"] == base["epsilon"], (name, label)
+            for label in ranks[0]["runs"]:
+                runs = [res["runs"][label] for res in ranks]
+                base = one[label]
+                rows = {}
+                for run in runs:
+                    rows.update(run["digests"]["rows"])
+                ranks_equal = (len({r["digests"]["global"] for r in runs}) == 1
+                               and len({tuple(r["elbo"]) for r in runs}) == 1)
+                bit = (runs[0]["digests"]["global"] == base["digests"]["global"]
+                       and rows == base["digests"]["rows"])
+                one_dump = torch.load(work / "one" / f"{label.replace(' ', '_')}.pt")
+                gap = 0.0
+                for res in ranks:
+                    dump = torch.load(work / name.replace(" x", "") / f"rank{res['rank']}"
+                                      / f"{label.replace(' ', '_')}.pt")
+                    gap = max(gap, state_gap(torch, dump, one_dump))
+                elbo_rel = max(abs(a - b) / abs(b) for a, b in
+                               zip(runs[0]["elbo"], base["elbo"], strict=True))
+                line = {"mp_run": label, "world": f"{name} ({MP_WORLD})", "card": card,
+                        "ranks_bit_identical": ranks_equal,
+                        "state_bit_identical_to_one_process": bit,
+                        "state_max_rel_gap": gap, "elbo_max_rel_gap": elbo_rel,
+                        "J_pad": runs[0]["J_pad"], "rows": [r["rows"] for r in runs],
+                        "bytes_up_per_round": runs[0]["bytes_up"][0],
+                        "bytes_gathered_per_rank": runs[0]["bytes_gathered"],
+                        "collective_bytes_per_rank": [r["collective_bytes"] for r in runs],
+                        "s_per_round_median_after_first": [
+                            statistics.median(r["s_per_round"][1:]) for r in runs],
+                        "one_process_s_per_round_median_after_first":
+                            statistics.median(base["s_per_round"][1:]),
+                        "gather_calls_per_round": runs[0]["gather_calls_per_round"],
+                        "gather_host_ms_median_a_call": [r["gather_host_ms_median"]
+                                                         for r in runs],
+                        "launches_per_round": {k: v / len(base["elbo"])
+                                               for k, v in runs[0]["counts"].items()}}
+                print(json.dumps(line), flush=True)
+                assert ranks_equal, line
+                # Bit for bit; else a batched op whose bits depend on the
+                # batch count (the probe names the first such op of round 0)
+                # and a gap held to phase 2's 1e-3.
+                if not bit and name == "gloo x2":
+                    op = batch_count_probe(torch, wire, specs[label][0])
+                    print(json.dumps({"mp_batch_op": label, "first_op_parting": op,
+                                      "card": card}), flush=True)
+                    assert op is not None, label
+                assert bit or gap <= 1e-3, line
+                assert elbo_rel <= 1e-5, line
+        # (a) the 1-rank NCCL world is the run without a world, bit for bit.
+        nccl = worlds["nccl x1"][0]["runs"]["hier_bnn sfvi_avg"]
+        assert nccl["digests"] == one["hier_bnn sfvi_avg"]["digests"]
+        assert nccl["elbo"] == one["hier_bnn sfvi_avg"]["elbo"]
+        # (b) the gloo ranks: padding, rows, owner-routed resume.
+        g2 = worlds["gloo x2"]
+        assert [r["runs"]["hier_bnn sfvi"]["rows"] for r in g2] == [[0, 1, 2, 3, 4],
+                                                                     [5, 6, 7, 8, 9]]
+        assert [r["runs"]["glmm+cholesky sfvi_avg"]["rows"] for r in g2] == [[0], [1]]
+        assert g2[0]["runs"]["smoke sfvi_avg J=7"]["J_pad"] == 8
+        for r in g2:
+            run = r["runs"]["hier_bnn sfvi"]
+            assert run["bytes_gathered"] == sum(run["bytes_up"]), run["bytes_gathered"]
+            print(json.dumps({"mp_resume": r["resume"], "rank": r["rank"]}), flush=True)
+            assert r["resume"]["equal"] and r["resume"]["round"] == 3, r["resume"]
+        # (c) the baseline's two mesh rows: silo=2 and silo=2,model=2 agree.
+        g4 = worlds["gloo x4"]
+        for r in g4:
+            a, b = r["runs"]["smoke sfvi"], g2[r["rank"] // 2]["runs"]["smoke sfvi"]
+            assert a["elbo"] == b["elbo"] and a["digests"] == b["digests"], r["rank"]
+            assert a["bytes_total"] == [504_576] * SMOKE_ROUNDS
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     return totals
 
 
@@ -3039,6 +3448,7 @@ def main(timings_only: bool = False) -> int:
     check_port_cuda_vs_cpu(np, torch)
     lap("2b port card vs CPU")
     err_bb = check_backbone_kernels(torch, attention, gla, rmsnorm, ref, gen)
+    check_grad_guard(torch, attention, gla, rmsnorm, gen)
     lap("2c backbone kernels")
     parity = check_backbone_cuda_vs_cpu(torch)
     print(json.dumps({"backbone_cuda_vs_cpu": parity}), flush=True)
@@ -3067,6 +3477,13 @@ def main(timings_only: bool = False) -> int:
         totals[k] += d_totals[k]
     print(json.dumps({"phase_3d_launches": d_totals}), flush=True)
     lap("3d async, churn, serving")
+    print("phase 3e: multi-process federation on one card (a 1-rank NCCL world; 2 and 4 "
+          f"gloo ranks sharing the card: {MP_WORLD})", flush=True)
+    e_totals = multiprocess_runs(np, torch, wire, reparam, ref, card)
+    for k in totals:
+        totals[k] += e_totals[k]
+    print(json.dumps({"phase_3e_launches": e_totals}), flush=True)
+    lap("3e multi-process")
     print("phase 3b: backbone serve runs at full width (bf16)", flush=True)
     bb_totals, serve_results = serve_runs(torch, [attention, gla, rmsnorm], [wire, reparam])
     for res in serve_results:
@@ -3095,6 +3512,8 @@ if __name__ == "__main__":
     args = sys.argv[1:]
     if args[:1] == ["--check"] and len(args) == 2:
         sys.exit(check_main(args[1]))
+    if args[:1] == ["--mp-worker"] and len(args) == 2:
+        sys.exit(mp_worker(args[1]))
     if args and (len(args) > 1 or args[0] not in modes):
         sys.exit(fail(f"unknown arguments {args!r}; takes none, one of {sorted(modes)}, "
                       f"or --check with one of {sorted(MUTANT_GROUPS)}"))

@@ -1,6 +1,6 @@
 """One declarative experiment API: spec → build → run → save → resume.
 
-The port of ``repro.federated.api`` on one device:
+The port of ``repro.federated.api``:
 
   * :class:`ExperimentSpec` — a frozen dataclass tree (model reference +
     kwargs, silos, rounds × local steps, optimizers, a
@@ -29,11 +29,19 @@ The port of ``repro.federated.api`` on one device:
 A scenario with an ``async_cfg`` runs its rounds as buffered-async flushes
 (:func:`~repro_torch.federated.async_engine.run_buffered`); a ``population``
 churns the silos (:class:`~repro_torch.federated.population.PopulationEngine`).
-What the port does not run yet is refused at :func:`build`, naming the
-ROADMAP item that brings it: more than one device or process in
-``runtime.mesh`` (Queue 1 item 5), ``runtime.sanitize`` (JAX trace
-machinery, Queue 1 item 6). ``runtime.wire == "legacy"`` (the reference's
-per-leaf wire) is not ported (Queue 1 item 6).
+
+``runtime.mesh`` with ``multiprocess`` spans the ranks of a
+``torch.distributed`` world (:func:`repro_torch.federated.distributed.initialize`,
+one process a device): every rank calls :func:`build`, ``run``, ``save``
+and ``resume`` alike. I/O is routed through the owners, as in the
+reference: the lead rank writes the spec, the server state and the meta
+sidecar, each silo block's owner writes that block's ``silo_JJJJ`` shards,
+and a resume reads the shards of the rank's own rows. What the port does
+not run is refused at :func:`build`, naming the ROADMAP item:
+``runtime.sanitize`` (JAX trace machinery, Queue 1 item 6) and
+``runtime.wire == "legacy"`` (the reference's per-leaf wire, Queue 1
+item 6); the reference's one-process mesh over several devices
+(``launch.mesh.build_mesh``) names the process flags instead.
 """
 from __future__ import annotations
 
@@ -43,10 +51,10 @@ import os
 from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
-import torch
 
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.core.family import FamilySpec
+from repro_torch.federated import distributed
 from repro_torch.federated.async_engine import BufferState, run_buffered
 from repro_torch.federated.population import (
     PopulationEngine,
@@ -55,7 +63,7 @@ from repro_torch.federated.population import (
 )
 from repro_torch.federated.scheduler import RoundScheduler, Scenario
 from repro_torch.federated.strategy import StrategySpec
-from repro_torch.launch.mesh import MeshSpec
+from repro_torch.launch.mesh import MeshSpec, build_mesh
 from repro_torch.tree import tree_leaves, tree_map
 
 PyTree = Any
@@ -230,16 +238,11 @@ class ExperimentSpec:
 
 
 def _refuse_unported(spec: ExperimentSpec, wire: str) -> None:
-    """Raise for what the port does not run yet, naming its ROADMAP item."""
+    """Raise for what the port does not run, naming its ROADMAP item."""
     if wire == "legacy":
         raise ValueError(
             "runtime.wire='legacy' (the reference's per-leaf wire) is not ported "
             "(ROADMAP Queue 1 item 6); use 'flat' or 'fused'")
-    mesh = spec.runtime.mesh
-    if not mesh.single_device:
-        raise NotImplementedError(
-            f"runtime.mesh={mesh} asks for more than one device or process; the "
-            "multi-GPU runtime is ROADMAP Queue 1 item 5")
     if spec.runtime.sanitize:
         raise NotImplementedError(
             "runtime.sanitize is the reference's JAX trace machinery, left "
@@ -284,7 +287,7 @@ def _build(spec: ExperimentSpec, bundle, wire: str, device,
             "hyperparameters)")
     strategy = strat_spec.build()
     _refuse_unported(spec, wire)
-    device = resolve_device(device)
+    device = distributed.rank_device(resolve_device(device))
     if bundle is None:
         data_seed = spec.data_seed if spec.data_seed is not None else spec.seed
         bundle = get_model(spec.model.name).build(
@@ -301,6 +304,7 @@ def _build(spec: ExperimentSpec, bundle, wire: str, device,
     if pop is not None:
         j_live = int(joined) if joined is not None else min(pop.initial, spec.num_silos)
     num_obs_full = _bundle_num_obs(bundle)
+    mesh = build_mesh(spec.runtime.mesh, num_silos=j_live)
     server = Server(
         problem, bundle.datas[:j_live], bundle.theta0,
         problem.global_family.init(generator(spec.seed, device)),
@@ -318,6 +322,7 @@ def _build(spec: ExperimentSpec, bundle, wire: str, device,
         # silos are non-participants of the whole federation.
         federation_size=spec.num_silos,
         federation_obs=float(sum(num_obs_full)),
+        mesh=mesh,
         device=device,
     )
     population = None if pop is None else PopulationEngine(pop, bundle, spec.num_silos)
@@ -410,7 +415,7 @@ class Experiment:
             self.round = r + 1
             if (spec.eval_every and self.bundle.eval_fn is not None
                     and (r + 1) % spec.eval_every == 0):
-                scores = self.bundle.eval_fn(self.server)
+                scores = self.evaluate()
                 metrics = dict(metrics, **scores)
                 self.history.setdefault("eval", []).append({"round": r + 1, **scores})
             if callback is not None:
@@ -437,10 +442,15 @@ class Experiment:
         return self.history
 
     def evaluate(self) -> Dict[str, float]:
-        """The registry's eval hook on the current state ({} if none)."""
+        """The registry's eval hook on the current state ({} if none). On a
+        mesh of several ranks the hook sees the whole roster's η_L, gathered
+        from every rank (so every rank must call this)."""
         if self.bundle.eval_fn is None:
             return {}
-        return dict(self.bundle.eval_fn(self.server))
+        srv = self.server
+        if srv.mesh.distributed and tree_leaves(srv.state["eta_L"]):
+            srv = _WholeRoster(srv.theta, srv.eta_G, srv.whole_silo_state("eta_L"))
+        return dict(self.bundle.eval_fn(srv))
 
     # -- checkpointing ------------------------------------------------------
 
@@ -483,27 +493,41 @@ class Experiment:
     def save(self, directory: str, keep: int = 3) -> str:
         """Persist the full round state under ``directory`` (the module
         docstring's layout; the ``keep`` newest steps are retained).
+
+        On a mesh of several ranks every rank calls ``save`` on a directory
+        they all see: the lead rank writes the spec, the server state and
+        the meta sidecar, each rank writes the shards of the real silos it
+        owns (:func:`~repro_torch.federated.distributed.row_owner_process`),
+        and a barrier follows, so no rank goes on before the step is whole.
         Returns the directory."""
+        srv = self.server
+        mesh = srv.mesh
         os.makedirs(directory, exist_ok=True)
         mgr = CheckpointManager(directory, keep=keep)
-        state = self.server.state
-        self.spec.save(os.path.join(directory, _SPEC_FILE))
-        mgr.save(self.round, {k: state[k] for k in _SERVER_KEYS})
+        state = srv.state
+        if mesh.lead:
+            self.spec.save(os.path.join(directory, _SPEC_FILE))
+            mgr.save(self.round, {k: state[k] for k in _SERVER_KEYS})
         silo_state = self._silo_state_tree(state)
-        for j in range(self.server.J if silo_state else 0):
-            mgr.save(self.round, tree_map(lambda x: x[j], silo_state),
-                     shard=f"silo_{j:04d}")
-        path = self._meta_path(directory, self.round)
-        with open(path + ".tmp", "w") as f:
-            json.dump(self._meta_dict(), f)
-        os.replace(path + ".tmp", path)
-        # The JSON sidecars keep the msgpack files' retention.
-        live = set(mgr.steps())
-        for fn in os.listdir(directory):
-            if fn.startswith("step_") and fn.endswith(".meta.json"):
-                s = fn[len("step_"):-len(".meta.json")]
-                if s.isdigit() and int(s) not in live:
-                    os.remove(os.path.join(directory, fn))
+        if silo_state:
+            for j in srv.rows:
+                if j < srv.J and distributed.row_owner_process(mesh, j, srv.J_pad) == mesh.rank:
+                    row = tree_map(lambda x, jj=j: distributed.host_rows(
+                        x, mesh, [jj], srv.J_pad)[jj], silo_state)
+                    mgr.save(self.round, row, shard=f"silo_{j:04d}")
+        if mesh.lead:
+            path = self._meta_path(directory, self.round)
+            with open(path + ".tmp", "w") as f:
+                json.dump(self._meta_dict(), f)
+            os.replace(path + ".tmp", path)
+            # The JSON sidecars keep the msgpack files' retention.
+            live = set(mgr.steps())
+            for fn in os.listdir(directory):
+                if fn.startswith("step_") and fn.endswith(".meta.json"):
+                    s = fn[len("step_"):-len(".meta.json")]
+                    if s.isdigit() and int(s) not in live:
+                        os.remove(os.path.join(directory, fn))
+        distributed.barrier(mesh, srv.device)
         return directory
 
     @classmethod
@@ -539,13 +563,16 @@ class Experiment:
         state.update(restored)
         silo_like = cls._silo_state_tree(state)
         if silo_like:
-            rows = []
-            for j in range(exp.server.J):
-                row = tree_map(lambda x, jj=j: x[jj], silo_like)
-                if mgr.has(step, shard=f"silo_{j:04d}"):
-                    row = mgr.restore(step, row, shard=f"silo_{j:04d}")
-                rows.append(row)
-            state.update(tree_map(lambda *xs: torch.stack(xs), *rows))
+            # Each rank reads the shards of the real silos it holds; a silo
+            # with no shard, and the padded rows, keep their fresh init.
+            srv = exp.server
+            loaded = {}
+            for j in srv.rows:
+                if j < srv.J and mgr.has(step, shard=f"silo_{j:04d}"):
+                    like = tree_map(lambda x, jj=j: distributed.host_rows(
+                        x, srv.mesh, [jj], srv.J_pad)[jj], silo_like)
+                    loaded[j] = mgr.restore(step, like, shard=f"silo_{j:04d}")
+            state.update(distributed.rows_to_block(silo_like, srv.mesh, loaded, srv.J_pad))
         exp.round = int(meta["round"])
         exp.comm.load_state(meta["comm"])
         if exp.accountant is not None and "acct" in meta:
@@ -554,6 +581,15 @@ class Experiment:
         if "async_state" in meta:
             exp.async_state = BufferState.from_state(meta["async_state"])
         return exp
+
+
+@dataclasses.dataclass(frozen=True)
+class _WholeRoster:
+    """What an eval hook reads of a Server, with η_L of every silo."""
+
+    theta: PyTree
+    eta_G: PyTree
+    eta_L: PyTree
 
 
 def run_spec(spec: ExperimentSpec,

@@ -38,12 +38,19 @@ class CommMeter:
     ``sim_seconds`` accumulates the simulated wall-clock between the
     buffered-async engine's flushes (``async_engine.run_buffered``);
     synchronous rounds leave it at zero.
+
+    ``bytes_gathered`` counts the encoded wire each rank of a multi-rank
+    mesh assembled from the silo blocks (J_pad rows an exchange, every
+    row gathered whether its silo was active or not); with J_pad == J and
+    every silo active it equals ``bytes_up``. It is a run-time counter:
+    the checkpointed :meth:`state_dict` is the reference's and omits it.
     """
 
     rounds: int = 0
     bytes_up: int = 0  # silo -> server (post-compression)
     bytes_down: int = 0  # server -> silo broadcast
     sim_seconds: float = 0.0  # simulated wall-clock (async latency model)
+    bytes_gathered: int = 0  # wire assembled across ranks (not checkpointed)
 
     def record(self, up: int, down: int, sim_seconds: float = 0.0) -> None:
         """Log one round's realized (up, down) bytes [+ simulated time]."""

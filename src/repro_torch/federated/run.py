@@ -43,13 +43,24 @@ is ``flat``) is kept by ``--spec`` and ``--resume``. ``--global-family`` /
 ``--local-family`` swap the model's variational families for registered
 ones. A model without an eval hook prints no eval line.
 
-The reference's ``--mesh``, ``--devices``, ``--sanitize`` and
-multi-process flags are accepted at their defaults; set otherwise they
-are refused with the ROADMAP item that brings them.
+Multi-process federation, one process a device (every process runs the
+same command with its own ``--process-id``; only rank 0 prints):
+
+    ... --mesh silo=2,multiprocess \
+        --coordinator localhost:29500 --num-processes 2 --process-id 0
+
+``--coordinator`` / ``--num-processes`` / ``--process-id`` export the
+reference's ``REPRO_COORDINATOR`` / ``REPRO_NUM_PROCESSES`` /
+``REPRO_PROCESS_ID`` and start a ``torch.distributed`` world (NCCL on the
+card, gloo with ``--device cpu``); ``--mesh`` lands on
+``spec.runtime.mesh``. The reference's ``--devices`` (host devices of one
+process) is refused: a torch process drives one card, so N cards are N
+processes. ``--sanitize`` is refused with the ROADMAP item that brings it.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -122,17 +133,22 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--sweep-dp-noise", default="0.0,1.0")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--mesh", default="", metavar="SPEC",
-                    help="federated mesh as 'silo=N,model=N[,multiprocess]' (one "
-                         "device only: ROADMAP Queue 1 item 5)")
+                    help="federated mesh as 'silo=N,model=N[,multiprocess]'; more than "
+                         "one rank needs multiprocess and a world (--num-processes); "
+                         "with --resume, overrides the checkpointed topology")
     ap.add_argument("--wire", default="fused", choices=["fused", "flat", "legacy"],
                     help="silo->server wire layout (fused = the CUDA kernels; "
                          "legacy is not ported)")
     ap.add_argument("--coordinator", default=None, metavar="HOST:PORT",
-                    help="multi-process runtime (ROADMAP Queue 1 item 5)")
-    ap.add_argument("--num-processes", type=int, default=None)
-    ap.add_argument("--process-id", type=int, default=None)
+                    help="torch.distributed rendezvous of a multi-process run "
+                         "(or REPRO_COORDINATOR)")
+    ap.add_argument("--num-processes", type=int, default=None,
+                    help="with --coordinator: the world size (or REPRO_NUM_PROCESSES)")
+    ap.add_argument("--process-id", type=int, default=None,
+                    help="with --coordinator: this process's rank (or REPRO_PROCESS_ID)")
     ap.add_argument("--devices", type=int, default=0,
-                    help="devices to span (ROADMAP Queue 1 item 5; 0 = one)")
+                    help="the reference's host devices of one process: refused (one "
+                         "process drives one card; use the process flags)")
     ap.add_argument("--sanitize", action="store_true",
                     help="the reference's JAX sanitizer (not ported)")
     ap.add_argument("--list-models", action="store_true",
@@ -158,12 +174,28 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
-def _refuse_process_flags(args) -> None:
-    """The flags that name devices or processes the port cannot span."""
-    if args.devices or args.coordinator or args.num_processes or args.process_id:
-        raise NotImplementedError(
-            "--devices / --coordinator / --num-processes / --process-id: the "
-            "multi-GPU runtime is ROADMAP Queue 1 item 5")
+def _start_world(args) -> bool:
+    """Refuse ``--devices``; with any process flag (or ``REPRO_COORDINATOR``)
+    export the env schema and start the world. Returns whether one started."""
+    from repro_torch.federated import distributed
+
+    if args.devices:
+        raise ValueError(
+            f"--devices {args.devices}: a torch process drives one card; span "
+            f"{args.devices} devices with {args.devices} processes: --coordinator "
+            f"HOST:PORT --num-processes {args.devices} --process-id R and --mesh "
+            f"silo={args.devices},multiprocess")
+    flags = {distributed.ENV_COORD: args.coordinator,
+             distributed.ENV_NUM_PROCS: args.num_processes,
+             distributed.ENV_PROC_ID: args.process_id}
+    if all(v is None for v in flags.values()) and not os.environ.get(distributed.ENV_COORD):
+        return False
+    distributed.initialize(args.coordinator, args.num_processes, args.process_id,
+                           device=args.device)
+    for env, value in flags.items():
+        if value is not None:
+            os.environ[env] = str(value)
+    return True
 
 
 def _family_spec(name, kwargs_json):
@@ -360,8 +392,26 @@ def main(argv=None) -> int:
         for name, desc in list_models():
             print(f"{name:<{width}}  {desc}")
         return 0
-    _refuse_process_flags(args)
+    if not _start_world(args):
+        return _main(args)
+    import torch.distributed as dist
+
+    from repro_torch.federated import distributed
+
+    try:
+        with contextlib.ExitStack() as stack:
+            if dist.get_rank() != 0:  # only the lead rank prints
+                stack.enter_context(contextlib.redirect_stdout(
+                    stack.enter_context(open(os.devnull, "w"))))
+            return _main(args)
+    finally:
+        distributed.shutdown()
+
+
+def _main(args) -> int:
+    """The CLI's body, once the world (if any) is up."""
     from repro_torch.device import resolve_device
+    from repro_torch.federated import distributed
     from repro_torch.federated.api import ExperimentSpec
 
     if args.spec:
@@ -384,7 +434,7 @@ def main(argv=None) -> int:
         print(specs[0].to_json())
         return 0
 
-    device = resolve_device(args.device)
+    device = distributed.rank_device(resolve_device(args.device))
     if args.resume:
         return _resume(args, device)
     base = specs[0]

@@ -1,11 +1,28 @@
-"""The federated round on one device: ``Server`` (the port of ``repro.federated.runtime``).
+"""The federated round over a mesh of ranks: ``Server`` (the port of ``repro.federated.runtime``).
 
 All J silos advance together: silo state (η_{L_j}, its optimizer state,
 and per-silo strategy state such as PVI's sites λ_j) and data are
 stacked along a leading silo axis, and the per-silo strategy hooks run
-under ``torch.func.vmap`` over that axis. On one
-device the cross-silo gather is the identity, so the reference's mesh
-padding, ``shard_map`` and graph cache have no counterpart (J_pad == J).
+under ``torch.func.vmap`` over that axis.
+
+The mesh (:func:`repro_torch.launch.mesh.build_mesh`) is one rank, or the
+(silo, model) grid of ranks of a ``torch.distributed`` world, one process
+a device. The stacked silo axis is padded to ``J_pad = ceil(J / silo) ·
+silo`` with copies of row 0 whose masks and weights are 0, and each rank
+holds the contiguous block of ``J_pad / silo`` rows of its silo block
+(:mod:`repro_torch.federated.distributed`): data, η_L, optimizer and
+strategy rows. Every rank runs the same host loop on its block, uploads
+its rows, gathers the encoded rows of every block (``gather_rows`` over
+the silo group), drops the padded tail, and then decodes, combines and
+updates the replicated server state from the same ``(J, P)`` matrix as
+one process.
+On a ``model`` axis each rank of a block uploads the block's full rows
+(the DP noise and the int8 row scales are those of the silo mesh), ships
+its ``ceil(P / model)`` column block over the silo group and rejoins the
+columns over the model group before the decode; the int8 scales ride the
+silo gather only. The ELBO sums are added over the silo blocks in rank
+order. With one rank every collective is the identity and J_pad == J.
+The reference's ``shard_map`` and graph cache have no counterpart.
 
 Each upload is packed into ONE float32 row (the flat wire,
 :class:`~repro_torch.core.flatten.TreeSpec`), so the stacked uploads are
@@ -34,7 +51,10 @@ Z_L = ∅), and the (J, P) N(0, I) DP noise (None without DP noise).
 Without a hook the port draws them from a ``torch.Generator`` on the
 device, seeded from (seed, r, t); the DP noise is one ``(J, P)``
 ``randn`` that the flat and fused wires consume alike. The round
-cadence uploads once, with the noise of step 0.
+cadence uploads once, with the noise of step 0. Every rank draws the
+whole (J, ...) ε_L and (J, P) noise and takes its rows, so the draws do
+not depend on the rank count; the upload's launch plan is pinned to
+J_pad (``fused_upload(plan_rows=)``) for the same reason.
 """
 from __future__ import annotations
 
@@ -48,6 +68,7 @@ from torch.func import vmap
 from repro_torch.core.family import supports_moments
 from repro_torch.core.flatten import TreeSpec
 from repro_torch.device import generator, resolve_device
+from repro_torch.federated import distributed
 from repro_torch.federated.aggregation import MeanAggregator, NoCompression
 from repro_torch.federated.metering import CommMeter
 from repro_torch.federated.privacy import PrivacyPolicy, RdpAccountant
@@ -61,6 +82,7 @@ from repro_torch.federated.strategy import (
     silo_eps,
 )
 from repro_torch.kernels import wire as wire_kernels
+from repro_torch.launch.mesh import Mesh, build_mesh, model_world
 from repro_torch.optim.base import GradientTransformation
 from repro_torch.tree import tree_leaves, tree_map
 
@@ -98,18 +120,27 @@ def _wire_codec(comp) -> str:
 
 
 class Server:
-    """Round-based federation driver over J stacked silos on one device.
+    """Round-based federation driver over J stacked silos on a mesh of ranks.
 
-    Args mirror the reference ``Server`` (see its docstring), minus the
-    mesh: ``problem``, ``datas`` (J per-silo dicts of tensors with equal
-    shapes), ``theta``, ``eta_G``, ``num_obs``, ``server_opt``,
-    ``local_opt``, ``aggregator``, ``compressor``, ``eta_mode``
-    (``"barycenter"``/``"param"``), ``privacy``, ``seed``, ``strategy``,
-    ``federation_size``, ``federation_obs``; plus
+    Args mirror the reference ``Server`` (see its docstring): ``problem``,
+    ``datas`` (J per-silo dicts of tensors with equal shapes), ``theta``,
+    ``eta_G``, ``num_obs``, ``server_opt``, ``local_opt``, ``aggregator``,
+    ``compressor``, ``eta_mode`` (``"barycenter"``/``"param"``),
+    ``privacy``, ``seed``, ``strategy``, ``federation_size``,
+    ``federation_obs``, and ``mesh`` (a built
+    :class:`~repro_torch.launch.mesh.Mesh`; default the one-rank mesh);
+    plus
 
       wire: ``"fused"`` (default; the CUDA kernels) or ``"flat"``.
-      device: where the federation lives; default ``cuda`` (raises when
-        CUDA is absent — pass ``"cpu"`` to run on the CPU).
+      device: where this rank's part of the federation lives; default
+        ``cuda`` (raises when CUDA is absent — pass ``"cpu"`` to run on
+        the CPU).
+
+    On a mesh of several ranks every rank constructs the Server with the
+    same arguments (they are pure functions of the spec) and keeps the
+    rows of its silo block: ``state["eta_L"]``, ``"opt_local"``,
+    ``"strategy"`` and ``data`` have ``J_pad / silo`` rows; θ, η_G and the
+    server optimizer are replicated.
     """
 
     def __init__(
@@ -131,17 +162,24 @@ class Server:
         strategy=None,
         federation_size: Optional[int] = None,
         federation_obs: Optional[float] = None,
+        mesh: Optional[Mesh] = None,
         device=None,
     ):
         self.device = resolve_device(device)
         dev = self.device
         self.problem = problem
         self.J = len(datas)
+        self.mesh = mesh if mesh is not None else build_mesh()
+        self.model_world = model_world(self.mesh)
+        self.J_pad = distributed.padded_rows(self.J, self.mesh)
         self.aggregator = aggregator or MeanAggregator()
         self.compressor = compressor or NoCompression()
         self.privacy = privacy
         self.accountant = RdpAccountant() if privacy is not None else None
-        self.data = tree_map(lambda x: x.to(dev), stack_silos(list(datas)))
+        # The roster's shards as given (each a pure function of the spec on
+        # every rank); the stacked data holds this rank's rows.
+        self._datas = list(datas)
+        self.data = self._held_data()
         self.seed = seed
         self._server_opt = server_opt
         self._local_opt = local_opt
@@ -157,6 +195,11 @@ class Server:
         if wire not in ("flat", "fused"):
             raise ValueError(f"unknown wire layout {wire!r} (flat/fused)")
         self.wire = wire
+        if self.model_world > 1 and _wire_codec(self.compressor) == "custom":
+            raise ValueError(
+                f"compressor {type(self.compressor).__name__} has no wire_codec "
+                "capability; model-axis sharding supports identity/int8 codecs only "
+                "(or set model=1)")
         if num_obs is None:
             num_obs = [int(tree_leaves(d)[0].shape[0]) for d in datas]
         self.num_obs = np.asarray(list(num_obs), np.float32)
@@ -169,8 +212,11 @@ class Server:
         if self._has_local:
             if local_opt is None:
                 raise ValueError("local_opt is required when the model has Z_L")
+            # Every rank draws the whole roster's init from one stream and
+            # keeps its rows: the rows do not depend on the rank count.
             gen = generator(seed + 1, dev)
-            eta_L = stack_silos([problem.local_family.init(gen) for _ in range(self.J)])
+            eta_L = self._held(stack_silos(
+                [problem.local_family.init(gen) for _ in range(self.J)]))
             opt_L = vmap(local_opt.init)(eta_L)
         else:
             eta_L, opt_L = {}, {}
@@ -184,7 +230,7 @@ class Server:
             "opt_server": server_opt.init({"theta": theta, "eta_G": eta_G}),
             "opt_local": opt_L,
         }
-        self.state["strategy"] = self._strategy.init_silo_state(self)
+        self.state["strategy"] = self._held(self._strategy.init_silo_state(self))
         self.comm = CommMeter()
 
     # -- accessors ------------------------------------------------------------
@@ -199,15 +245,60 @@ class Server:
 
     @property
     def eta_L(self) -> PyTree:
-        """Stacked per-silo variational parameters η_{L_j} (leading axis J)."""
+        """Stacked per-silo variational parameters η_{L_j}: this rank's rows
+        of the padded axis (all J rows on a one-rank mesh)."""
         return self.state["eta_L"]
 
     @property
     def strategy(self) -> ServerStrategy:
         return self._strategy
 
+    @property
+    def rows(self) -> list:
+        """Padded-row indices this rank holds."""
+        return distributed.owned_rows(self.mesh, self.J_pad)
+
     def _resolve(self, algorithm) -> ServerStrategy:
         return self._strategy if algorithm is None else resolve_strategy(algorithm)
+
+    # -- the padded, rank-split silo axis -------------------------------------
+
+
+    def _held(self, tree: PyTree) -> PyTree:
+        """A (J, ...) stacked tree -> this rank's rows of its padded axis; the
+        padded tail repeats row 0 (masked out of every round)."""
+        pad = self.J_pad - self.J
+        if pad:
+            tree = tree_map(lambda x: torch.cat(
+                [x, x[:1].expand((pad,) + tuple(x.shape[1:]))]), tree)
+        return distributed.own(tree, self.mesh, self.J_pad)
+
+    def _held_data(self) -> PyTree:
+        rows = [self._datas[j] if j < self.J else self._datas[0] for j in self.rows]
+        return tree_map(lambda x: x.to(self.device), stack_silos(rows))
+
+    def _held_mask(self, m: torch.Tensor) -> torch.Tensor:
+        """This rank's entries of a (..., J) mask; padded rows get 0."""
+        pad = self.J_pad - m.shape[-1]
+        if pad:
+            m = torch.cat([m, m.new_zeros(m.shape[:-1] + (pad,))], dim=-1)
+        rows = self.rows
+        return m[..., rows[0]: rows[-1] + 1]
+
+    def _held_obs(self) -> torch.Tensor:
+        """N_j of this rank's rows (padded rows repeat N_0)."""
+        n = [self.num_obs[j] if j < self.J else self.num_obs[0] for j in self.rows]
+        return torch.as_tensor(np.asarray(n, np.float32), device=self.device)
+
+    def _silo_groups(self) -> list:
+        """The stacked state groups with leaves."""
+        return [k for k in ("eta_L", "opt_local", "strategy") if tree_leaves(self.state[k])]
+
+    def whole_silo_state(self, key: str) -> PyTree:
+        """The J real rows of a stacked state group from every rank (one
+        collective on a mesh of several ranks; every rank must call it)."""
+        whole = distributed.gather_tree_rows(self.state[key], self.mesh)
+        return tree_map(lambda x: x[: self.J], whole)
 
     # -- dynamic population growth --------------------------------------------
 
@@ -216,14 +307,18 @@ class Server:
         """Append joining silos to the stacked silo axis, in place.
 
         The population engine's join path: the new silos' data shards
-        (leaf shapes equal to the federation's) are appended and every
-        stacked tree is rebuilt into new contiguous tensors, the existing
-        rows copied bit for bit. ``eta_rows`` gives each new silo's initial
-        η_L (the amortized warm start); without it the cold family init is
-        drawn from ``generator((seed + 1, j))``, a pure function of (seed,
-        roster index), so a resume re-grows bit for bit. New optimizer
-        moments are fresh; per-silo strategy state keeps its old rows and
-        takes the strategy's init for the new ones (PVI's zero sites).
+        (leaf shapes equal to the federation's) are appended, J and the
+        mesh-chunked ``J_pad`` are recomputed, and every stacked tree is
+        rebuilt into new contiguous tensors, the existing rows copied bit
+        for bit. On a mesh of several ranks every group's held rows are
+        first handed over in one collective (a step of ``J_pad`` moves rows
+        between ranks) and each rank keeps its new block. ``eta_rows``
+        gives each new silo's initial η_L (the amortized warm start);
+        without it the cold family init is drawn from ``generator((seed +
+        1, j))``, a pure function of (seed, roster index), so a resume
+        re-grows bit for bit. New optimizer moments are fresh; per-silo
+        strategy state keeps its old rows and takes the strategy's init for
+        the new ones (PVI's zero sites).
         """
         if not datas:
             return
@@ -235,32 +330,34 @@ class Server:
         new = list(datas)
         if num_obs is None:
             num_obs = [int(tree_leaves(d)[0].shape[0]) for d in new]
-
-        def grown(old, rows):
-            return tree_map(lambda a, b: torch.cat([a, b.to(dev)]), old, rows)
-
-        self.data = grown(self.data, stack_silos(new))
+        groups = self._silo_groups()
+        whole = distributed.gather_tree_rows({k: self.state[k] for k in groups}, self.mesh)
+        whole = tree_map(lambda x: x[:old_J], whole)
+        self._datas.extend(new)
         self.J = old_J + len(new)
+        self.J_pad = distributed.padded_rows(self.J, self.mesh)
         self.num_obs = np.concatenate([self.num_obs, np.asarray(list(num_obs), np.float32)])
         if self._has_local:
             rows = (list(eta_rows) if eta_rows is not None else
                     [self.problem.local_family.init(generator((self.seed + 1, j), dev))
                      for j in range(old_J, self.J)])
             new_eta = tree_map(lambda x: x.to(dev), stack_silos(rows))
-            self.state["eta_L"] = grown(self.state["eta_L"], new_eta)
-            self.state["opt_local"] = grown(self.state["opt_local"],
-                                            vmap(self._local_opt.init)(new_eta))
-        old_strat = self.state["strategy"]
-        if tree_leaves(old_strat):
+            whole["eta_L"] = tree_map(lambda a, b: torch.cat([a, b]), whole["eta_L"], new_eta)
+            whole["opt_local"] = tree_map(lambda a, b: torch.cat([a, b]), whole["opt_local"],
+                                          vmap(self._local_opt.init)(new_eta))
+        if "strategy" in whole:
             fresh = self._strategy.init_silo_state(self)
-            self.state["strategy"] = tree_map(
-                lambda f, o: torch.cat([o, f[old_J:]]), fresh, old_strat)
+            whole["strategy"] = tree_map(
+                lambda f, o: torch.cat([o, f[old_J:]]), fresh, whole["strategy"])
+        for k, v in whole.items():
+            self.state[k] = self._held(v)
+        self.data = self._held_data()
 
     def _ensure_strategy_state(self, strat: ServerStrategy) -> None:
         """Create per-silo strategy state when ``run`` switches to a stateful
         strategy the Server was not built with (restored state is kept)."""
         if strat.has_silo_state and not tree_leaves(self.state["strategy"]):
-            self.state["strategy"] = strat.init_silo_state(self)
+            self.state["strategy"] = self._held(strat.init_silo_state(self))
 
     # -- wire accounting ------------------------------------------------------
 
@@ -307,7 +404,9 @@ class Server:
         return self.privacy is not None and self.privacy.noise_multiplier > 0.0
 
     def _upload(self, mat, mask, noise, ref):
-        """The stacked (J, P) uploads -> what crosses the wire (encoded)."""
+        """This rank's stacked (rows, P) uploads -> what crosses the wire:
+        the (rows, P) matrix (identity codec), ``{"q", "scale"}`` (int8), or
+        a list of per-silo encodings (a custom codec)."""
         comp, privacy = self.compressor, self.privacy
         codec = _wire_codec(comp)
         if self.wire == "fused":
@@ -316,7 +415,7 @@ class Server:
                 reference=ref,
                 clip_norm=None if privacy is None else privacy.clip_norm,
                 noise_multiplier=0.0 if privacy is None else privacy.noise_multiplier,
-                quantize=codec == "int8")
+                quantize=codec == "int8", plan_rows=self.J_pad)
             if codec == "int8":
                 return {"q": out[0], "scale": out[1]}
             if codec == "identity":
@@ -333,37 +432,88 @@ class Server:
             idle = ref if ref is not None else torch.zeros_like(ship)
             ship = torch.where(mask[j] > 0.5, ship, idle)
             encs.append(comp.encode(ship))
+        if codec == "identity":
+            return torch.stack(encs)
+        if codec == "int8":
+            # One flat leaf a silo: its (q, scale) rows, as the fused wire's.
+            return {"q": torch.stack([e["leaves"][0]["q"] for e in encs]),
+                    "scale": torch.stack([e["leaves"][0]["scale"] for e in encs])}
         return encs
+
+    def _gather(self, enc, P: int):
+        """Every silo block's encoded rows -> the J real rows of the wire.
+
+        On a mesh of several ranks the blocks' rows are gathered into the
+        whole padded (J_pad, ...) wire (its bytes are counted) and the
+        padded tail, whose weights are 0, is dropped: the decode and the
+        combine then see the one-process (J, P) matrix, so padding moves
+        no bit. On a one-rank mesh this is the identity.
+        """
+        mesh = self.mesh
+        if not mesh.distributed:
+            return enc
+        J = self.J
+        if isinstance(enc, list):  # a custom codec's per-silo encodings
+            whole = distributed.gather_tree_rows(stack_silos(enc), mesh)
+            out = [tree_map(lambda x, j=j: x[j], whole) for j in range(J)]
+            leaves = tree_leaves(whole)
+        else:
+            if isinstance(enc, dict):
+                whole = {"q": self._gather_wire(enc["q"], P),
+                         "scale": distributed.gather_rows(enc["scale"], mesh)}
+            else:
+                whole = self._gather_wire(enc, P)
+            leaves = tree_leaves(whole)
+            out = tree_map(lambda x: x[:J], whole)
+        self.comm.bytes_gathered += sum(x.numel() * x.element_size() for x in leaves)
+        return out
+
+    def _gather_wire(self, x: torch.Tensor, P: int) -> torch.Tensor:
+        """(rows, P) -> (J_pad, P): on a model axis this rank ships its
+        zero-padded column block of ``ceil(P / model)`` over the silo group,
+        and the blocks are rejoined over the model group."""
+        mesh = self.mesh
+        if mesh.model == 1:
+            return distributed.gather_rows(x, mesh)
+        Pb = -(-P // mesh.model)
+        xp = torch.nn.functional.pad(x, (0, Pb * mesh.model - P))
+        block = xp[:, mesh.model_index * Pb:(mesh.model_index + 1) * Pb].contiguous()
+        full = distributed.gather_cols(distributed.gather_rows(block, mesh), mesh)
+        return full[:, :P].contiguous()
 
     def _decode(self, enc) -> torch.Tensor:
         """What crossed the wire -> the dequantized (J, P) float32 matrix."""
-        if self.wire == "fused":
-            codec = _wire_codec(self.compressor)
-            if codec == "int8":
-                return enc["q"].float() * enc["scale"][:, None]
-            if codec == "identity":
-                return enc
+        codec = _wire_codec(self.compressor)
+        if codec == "int8":
+            return enc["q"].float() * enc["scale"][:, None]
+        if codec == "identity":
+            return enc
         return torch.stack([self.compressor.decode(e) for e in enc])
 
     def _draw(self, draws: Optional[Draws], r: int, t: int, P: int) -> tuple:
+        """(ε_G, this rank's ε_L rows, this rank's noise rows): the whole
+        (J, ...) draws are made (or injected) on every rank, then held."""
         if draws is not None:
             eps_G, eps_L, noise = draws(r, t)
             dev = self.device
-            return (eps_G.to(dev), None if eps_L is None else eps_L.to(dev),
-                    None if noise is None else noise.to(dev))
-        gen = generator((self.seed, r, t), self.device)
-        eps_G = global_eps(self.problem, gen)
-        eps_L = silo_eps(self.problem, gen, self.J)
-        noise = (torch.randn((self.J, P), generator=gen, device=self.device)
-                 if self._noise_on() else None)
-        return eps_G, eps_L, noise
+            eps_G, eps_L, noise = (eps_G.to(dev), None if eps_L is None else eps_L.to(dev),
+                                   None if noise is None else noise.to(dev))
+        else:
+            gen = generator((self.seed, r, t), self.device)
+            eps_G = global_eps(self.problem, gen)
+            eps_L = silo_eps(self.problem, gen, self.J)
+            noise = (torch.randn((self.J, P), generator=gen, device=self.device)
+                     if self._noise_on() else None)
+        return (eps_G, None if eps_L is None else self._held(eps_L),
+                None if noise is None else self._held(noise))
 
     def _silo_in_dims(self, eps_L_dim: Optional[int]):
         # eta_L, opt_L, data, mask, n_obs, per-silo eps
         return (0, 0, 0, 0, 0, None if not self._has_local else eps_L_dim)
 
     def _step_round(self, strat, K, masks, weights, r, draws) -> torch.Tensor:
-        """Round = K synchronized steps: upload + combine + server update each."""
+        """Round = K synchronized steps: upload + combine + server update each.
+        ``masks`` and ``weights`` are (K, J) over the real silos."""
         wire = self.wire_spec(strat)
         ctx = self._ctx(K, wire)
         merge = ctx.aggregator
@@ -371,10 +521,11 @@ class Server:
         s = self.state
         theta, eta_G, opt_server = s["theta"], s["eta_G"], s["opt_server"]
         eta_L, opt_L = s["eta_L"], s["opt_local"]
-        n_j = torch.as_tensor(self.num_obs, device=self.device)
+        held = self._held_mask(masks)
+        n_j = self._held_obs()
         elbos = []
         for t in range(K):
-            m, w = masks[t], weights[t]
+            m, w, m_own = masks[t], weights[t], held[t]
             n_active = torch.clamp(torch.sum(m), min=1.0)
             eps_G, eps_L, noise = self._draw(draws, r, t, wire.dim)
             ref = self._packed_reference(strat, ctx, wire, theta, eta_G)
@@ -387,9 +538,10 @@ class Server:
                 return eta_Lj, opt_Lj, ship, hatLj * m_j
 
             eta_L, opt_L, ship, hatL = vmap(per_silo, in_dims=self._silo_in_dims(0))(
-                eta_L, opt_L, self.data, m, n_j, eps_L)
-            enc = self._upload(wire.pack(ship, batch_ndim=1), m, noise, ref)
-            hatL_sum = torch.sum(hatL)
+                eta_L, opt_L, self.data, m_own, n_j, eps_L)
+            enc = self._gather(self._upload(wire.pack(ship, batch_ndim=1), m_own, noise, ref),
+                               wire.dim)
+            hatL_sum = distributed.sum_over_silos(torch.sum(hatL), self.mesh)
             if int8 and isinstance(merge, FusedReduction):
                 # Dequantize inside the reduction kernel: the server never
                 # materializes the dequantized (J, P) matrix.
@@ -406,18 +558,20 @@ class Server:
         return torch.stack(elbos)
 
     def _round_round(self, strat, K, mask, w, r, draws) -> torch.Tensor:
-        """Round = K local steps per silo, ONE upload + one server merge."""
+        """Round = K local steps per silo, ONE upload + one server merge.
+        ``mask`` and ``w`` are (J,) over the real silos."""
         wire = self.wire_spec(strat)
         ctx = self._ctx(K, wire)
         s = self.state
         theta, eta_G = s["theta"], s["eta_G"]
-        n_j = torch.as_tensor(self.num_obs, device=self.device)
+        n_j = self._held_obs()
         n_active = torch.clamp(torch.sum(mask), min=1.0)
         ref = self._packed_reference(strat, ctx, wire, theta, eta_G)
         steps = [self._draw(draws, r, t, wire.dim) for t in range(K)]
         eps_G_seq = torch.stack([d[0] for d in steps])
         eps_L_seq = torch.stack([d[1] for d in steps]) if self._has_local else None
         noise = steps[0][2]
+        m_own = self._held_mask(mask)
 
         def per_silo(eta_Lj, opt_Lj, st_j, data_j, m_j, n_obs_j, eps_Lj):
             eta_Lj, opt_Lj, st_j, ship, elbos = strat.local_run(
@@ -426,12 +580,13 @@ class Server:
             return eta_Lj, opt_Lj, st_j, ship, elbos * m_j
 
         # The strategy state rides the silo axis beside eta_L; eps_L_seq is
-        # (K, J, ...): its silo axis is 1.
+        # (K, rows, ...): its silo axis is 1.
         in_dims = (0,) + self._silo_in_dims(1)  # every silo argument at 0 but eps
         eta_L, opt_L, strat_state, ship, elbos = vmap(per_silo, in_dims=in_dims)(
-            s["eta_L"], s["opt_local"], s["strategy"], self.data, mask, n_j, eps_L_seq)
-        enc = self._upload(wire.pack(ship, batch_ndim=1), mask, noise, ref)
-        elbo_t = torch.sum(elbos, dim=0) / n_active
+            s["eta_L"], s["opt_local"], s["strategy"], self.data, m_own, n_j, eps_L_seq)
+        enc = self._gather(self._upload(wire.pack(ship, batch_ndim=1), m_own, noise, ref),
+                           wire.dim)
+        elbo_t = distributed.sum_over_silos(torch.sum(elbos, dim=0), self.mesh) / n_active
         # Round-cadence merges may need every silo's upload (the
         # barycenter), so the dequantized matrix is materialized here; the
         # reductions still run as the fused kernel. The combined row is

@@ -28,7 +28,14 @@ from typing import Dict, Optional
 import torch
 
 from repro_torch.kernels import ref as _ref
-from repro_torch.kernels.wire import _on_cuda, _ptr, _raise_on, _unit_last, tc_vector_loads
+from repro_torch.kernels.wire import (
+    _on_cuda,
+    _ptr,
+    _raise_on,
+    _unit_last,
+    refuse_grad,
+    tc_vector_loads,
+)
 
 LAUNCHES: Dict[str, int] = {"flash_attention": 0, "flash_attention_tc": 0}
 
@@ -103,6 +110,7 @@ def flash_attention(
     if not _on_cuda(q):
         return _ref.flash_attention_plain(q, k, v, causal=causal, window=window,
                                           q_offset=q_offset)
+    refuse_grad("flash_attention", q, k, v)
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"flash_attention takes q (B,Sq,H,hd), k = v (B,Skv,KV,hd); got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")

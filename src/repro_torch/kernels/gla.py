@@ -28,7 +28,14 @@ from typing import Dict, NamedTuple, Optional
 import torch
 
 from repro_torch.kernels import ref as _ref
-from repro_torch.kernels.wire import _on_cuda, _ptr, _raise_on, _unit_last, tc_vector_loads
+from repro_torch.kernels.wire import (
+    _on_cuda,
+    _ptr,
+    _raise_on,
+    _unit_last,
+    refuse_grad,
+    tc_vector_loads,
+)
 
 LAUNCHES: Dict[str, int] = {"gla": 0, "gla_tc": 0}
 
@@ -111,6 +118,7 @@ def gla(
     """
     if not _on_cuda(q):
         return _ref.gla_plain(q, k, v, log_a, chunk=CHUNK, return_state=return_state)
+    refuse_grad("gla", q, k, v, log_a)
     if q.dim() != 4 or k.shape != q.shape or v.dim() != 4 or v.shape[:3] != q.shape[:3] \
             or tuple(log_a.shape) != tuple(q.shape[:3]):
         raise ValueError(f"gla takes q = k (B,S,H,dk), v (B,S,H,dv), log_a (B,S,H); got "

@@ -37,11 +37,14 @@ def wire_upload_ref(
     clip_norm: Optional[float] = None,
     noise_multiplier: float = 0.0,
     quantize: bool = False,
+    plan_rows: Optional[int] = None,
 ):
     """Per row: (delta from reference →) L2 clip → + z·C·noise → add the
     reference back → mask select (reference or zeros) → optional int8
     quantization with one scale per row. Returns the float matrix, or
-    ``(q, scales)`` when ``quantize``.
+    ``(q, scales)`` when ``quantize``. ``plan_rows`` is the wrapper's (the
+    card's launch plan) and has no effect here, so the two take the same
+    arguments.
     """
     x = x.float()
     y = x

@@ -29,7 +29,7 @@ from typing import Callable, Dict, NamedTuple, Optional
 import torch
 
 from repro_torch.kernels import ref as _ref
-from repro_torch.kernels.wire import H100_SMS, _on_cuda, _ptr, _raise_on
+from repro_torch.kernels.wire import H100_SMS, _on_cuda, _ptr, _raise_on, refuse_grad
 
 LAUNCHES: Dict[str, int] = {"rmsnorm": 0}
 
@@ -137,6 +137,7 @@ def rmsnorm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6) -> torch.T
     """
     if not _on_cuda(x):
         return _ref.rmsnorm_plain(x, weight, eps)
+    refuse_grad("rmsnorm", x, weight)
     D = x.shape[-1]
     if x.dtype not in DTYPES or weight.dtype not in DTYPES:
         raise ValueError(f"rmsnorm takes float32 or bfloat16, got {x.dtype} and {weight.dtype}")

@@ -134,6 +134,17 @@ def _on_cuda(x: torch.Tensor) -> bool:
     return True
 
 
+def refuse_grad(kernel: str, *tensors: torch.Tensor) -> None:
+    """Raise when autograd would need a backward the CUDA kernel lacks: grad
+    mode is on and an input requires grad. The kernel's output is written
+    through ctypes, so it would carry no graph and the gradient would be
+    lost without a word."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{kernel}: the CUDA kernel has no backward, and an input requires grad; "
+            "call it under torch.no_grad() or on tensors that do not require grad")
+
+
 def _upload_plan(J: int, P: int, sms: int = H100_SMS) -> Tuple[int, int]:
     """``(C, chunk)``: the upload kernel's grid splits each of the J rows into
     C column chunks of ``chunk`` floats (the last one ragged).
@@ -208,6 +219,7 @@ def fused_upload(
     clip_norm: Optional[float] = None,
     noise_multiplier: float = 0.0,
     quantize: bool = False,
+    plan_rows: Optional[int] = None,
 ):
     """Fused clip + noise + mask + int8 quantize over the wire matrix.
 
@@ -216,6 +228,11 @@ def fused_upload(
     is one launch (SFVI, SFVI-Avg), two (clip, or int8 alone) or three
     (clip + int8) of the row-split kernels; ``LAUNCHES["fused_upload"]``
     counts calls, as ``newton_schulz_step`` counts step calls.
+
+    ``plan_rows`` (default J) is the row count the launch plan's column
+    chunks are chosen for (:func:`_upload_plan`): a rank uploading its
+    block of a federation passes the whole padded J, so each row's clip
+    norm sums its chunks as the one-process upload does.
     """
     if noise_multiplier > 0.0 and clip_norm is None:
         raise ValueError("noise_multiplier > 0 requires clip_norm")
@@ -242,7 +259,8 @@ def fused_upload(
     scales = torch.empty((J,), dtype=torch.float32, device=dev) if quantize else None
     if J and P:
         clip = clip_norm is not None
-        C, chunk = _upload_plan(J, P, torch.cuda.get_device_properties(dev).multi_processor_count)
+        C, chunk = _upload_plan(J if plan_rows is None else plan_rows, P,
+                                torch.cuda.get_device_properties(dev).multi_processor_count)
         norm_parts = torch.empty((J, C), dtype=torch.float32, device=dev) if clip else None
         max_parts = torch.empty((J, C), dtype=torch.float32, device=dev) if quantize else None
         vec = _upload_vec(P, [t for t in (x, noise if has_noise else None, reference, y, q)

@@ -180,12 +180,15 @@ def test_validation_errors_match_the_reference(name, fn):
 
 REFUSED = {
     "legacy_wire": (dict(runtime=tapi.RuntimeSpec(wire="legacy")), ValueError, "item 6"),
+    # The reference's one-process mesh over several devices: a torch process
+    # drives one card, so the refusal names the process flags.
     "mesh_silo": (dict(runtime=tapi.RuntimeSpec(mesh=tmesh.MeshSpec(silo=2))),
-                  NotImplementedError, "item 5"),
+                  ValueError, "--num-processes"),
     "mesh_model": (dict(runtime=tapi.RuntimeSpec(mesh=tmesh.MeshSpec(model=2))),
-                   NotImplementedError, "item 5"),
-    "multiprocess": (dict(runtime=tapi.RuntimeSpec(mesh=tmesh.MeshSpec.parse("multiprocess"))),
-                     NotImplementedError, "item 5"),
+                   ValueError, "--num-processes"),
+    # A mesh of more than one rank without a torch.distributed world.
+    "multiprocess": (dict(runtime=tapi.RuntimeSpec(
+        mesh=tmesh.MeshSpec.parse("silo=2,multiprocess"))), ValueError, "--num-processes"),
     "sanitize": (dict(runtime=tapi.RuntimeSpec(sanitize=True)), NotImplementedError, "item 6"),
     # Async and populations run since ROADMAP Queue 1 item 4; what build
     # still refuses of them is what the reference refuses too.
@@ -207,7 +210,7 @@ def test_build_refuses_what_the_port_lacks(case):
 
 def test_single_device_meshes_build():
     for mesh in (tmesh.MeshSpec(), tmesh.MeshSpec.parse("silo=1"),
-                 tmesh.MeshSpec.parse("silo=1,model=1")):
+                 tmesh.MeshSpec.parse("silo=1,model=1"), tmesh.MeshSpec.parse("multiprocess")):
         spec = tapi.ExperimentSpec(model=tapi.ModelSpec("toy"), num_silos=2,
                                    runtime=tapi.RuntimeSpec(mesh=mesh))
         exp = tapi.build(spec, device="cpu")
@@ -219,14 +222,21 @@ def test_single_device_meshes_build():
                                    ["--population", '{"initial": 3}'],
                                    ["--mesh", "silo=2"], ["--sanitize"]])
 def test_cli_refuses_the_multi_device_async_and_population_flags(flags):
-    """The multi-device flags name their ROADMAP item; --async and
+    """--devices and a multi-rank --mesh without a world name the process
+    flags (a torch process drives one card), --coordinator alone asks for
+    --num-processes, --sanitize names its ROADMAP item; --async and
     --population run (Queue 1 item 4), and the CLI refuses, as the
     reference does, a buffer or an initial population wider than --silos."""
     argv = ["--device", "cpu", "--model", "toy", "--silos", "2", "--rounds", "1",
             "--algo", "sfvi_avg", *flags]
-    exc, match = NotImplementedError, "ROADMAP Queue 1 item"
-    if flags[0] in ("--async", "--population"):
-        exc, match = ValueError, "buffer_size" if flags[0] == "--async" else "initial"
+    exc, match = {
+        "--devices": (ValueError, "--num-processes 2 --process-id"),
+        "--coordinator": (ValueError, "--num-processes"),
+        "--async": (ValueError, "buffer_size"),
+        "--population": (ValueError, "initial"),
+        "--mesh": (ValueError, "--num-processes"),
+        "--sanitize": (NotImplementedError, "ROADMAP Queue 1 item 6"),
+    }[flags[0]]
     with pytest.raises(exc, match=match):
         tcli.main(argv)
 

@@ -12,6 +12,8 @@ inputs. Tolerances are ``tests/test_kernels.py``'s: f32 atol = rtol =
 chunk length differs (the port's 64, the Pallas kernel's 128, the jnp
 path's 256); the chunked form is exact up to rounding.
 """
+import contextlib
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -194,3 +196,50 @@ def test_rmsnorm_plain_matches_pallas_and_oracle(case):
     np.testing.assert_allclose(_np(got), _np(kernel), **tol)
     np.testing.assert_allclose(_np(got), _np(oracle), **tol)
     assert trms.LAUNCHES == {"rmsnorm": 0}
+
+
+# ---------------------------------------------------------------------------
+# The CUDA route refuses inputs that require grad (the kernels have no backward)
+# ---------------------------------------------------------------------------
+
+
+class _Launched(Exception):
+    """Raised by the stub library: the wrapper got past its checks."""
+
+
+def _grad_cases():
+    from repro_torch.kernels import attention, gla, rmsnorm
+
+    q = torch.randn(1, 4, 2, 8)
+    return {
+        "flash_attention": (attention, lambda t: attention.flash_attention(t, q, q)),
+        "gla": (gla, lambda t: gla.gla(t, q, q, -torch.rand(1, 4, 2))),
+        "rmsnorm": (rmsnorm, lambda t: rmsnorm.rmsnorm(t, torch.ones(8))),
+    }
+
+
+@pytest.mark.parametrize("name", ["flash_attention", "gla", "rmsnorm"])
+def test_cuda_route_refuses_grad_before_any_launch(monkeypatch, name):
+    """The wrappers' CUDA route, forced on CPU tensors (``_on_cuda`` patched,
+    the kernel library a stub): an input that requires grad with grad mode
+    on raises, naming the kernel, before the library is reached and before
+    a launch is counted; under ``torch.no_grad`` (or without
+    ``requires_grad``) the call gets past the guard (and then stops at the
+    library or at the CUDA calls around it, which this machine lacks)."""
+    mod, call = _grad_cases()[name]
+
+    def lib():
+        raise _Launched
+
+    monkeypatch.setattr(mod, "_on_cuda", lambda x: True)
+    monkeypatch.setattr(mod, "_lib", lib)
+    before = dict(mod.LAUNCHES)
+    x = torch.randn(1, 4, 2, 8, requires_grad=True)
+    with pytest.raises(RuntimeError, match=f"{name}: the CUDA kernel has no backward"):
+        call(x)
+    assert mod.LAUNCHES == before
+    for mode, t in ((torch.no_grad, x), (contextlib.nullcontext, x.detach())):
+        with mode(), pytest.raises((_Launched, AssertionError, RuntimeError)) as past:
+            call(t)
+        assert "no backward" not in str(past.value)
+    assert mod.LAUNCHES == before

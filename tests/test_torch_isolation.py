@@ -38,7 +38,8 @@ def test_port_imports_with_jax_blocked():
                  "models.backbone.transformer", "launch.serve_backbone",
                  "federated.api", "federated.population", "launch.mesh",
                  "checkpoint", "checkpoint.io", "federated.run",
-                 "federated.async_engine", "federated.serve", "core.amortized"):
+                 "federated.async_engine", "federated.serve", "core.amortized",
+                 "federated.distributed"):
         assert f"repro_torch.{name}" in mods
     code = (
         "import sys, importlib, tempfile, os\n"
