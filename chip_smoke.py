@@ -46,7 +46,9 @@ non-zero):
      warpgroups a block, each bf16 output also element by element within
      2^-7 of itself + 2^-6 of its row's rms; f32 on the SIMT kernel; the
      launch counters show which ran) at zamba2's (B, S, H/KV, hd) = (8, 64, 32/32, 112) and
-     (4, 4,096, 32/32, 112), qwen3's (8, 512, 32/8, 128), a decode shape
+     (4, 4,096, 32/32, 112), qwen3's (8, 512, 32/8, 128), the GQA groups
+     of 3 and 8 (llama3.2-3b's (8, 64, 24/8, 128), qwen3-32b's (8, 512,
+     64/8, 128)), a decode shape
      (Sq = 1, q_offset), window 128, non-causal and S = 1,000, and in bf16
      at hd 64, 80, 100, 256, as strided views of a packed tensor (aligned
      and one element off), and with q tiles or rows without a live key;
@@ -58,7 +60,8 @@ non-zero):
      kernel; both routes' final state within 1e-4 / 1e-5 relative
      Frobenius of the plain state; its shared-memory plan against the
      wrapper's); RMSNorm at D = 3,584,
-     7,168, 2,560 and 128 with ragged row counts and rows at scales 2^-4
+     7,168, 2,560, 3,072, 4,096, 5,120 and 128 (every width of the serve
+     cells) with ragged row counts and rows at scales 2^-4
      to 2^4, on 16-byte vectors and, with x one element off 16 bytes, on
      the scalar route, each bf16 output also element by element within
      one bf16 step of the plain value, and on plans where a few blocks
@@ -175,9 +178,36 @@ non-zero):
      zamba2-7b at full depth (81 layers; batch 8, prompt 64, gen 32, 4
      silos: the JAX CLI's defaults),
      zamba2-7b at 12 layers (batch 4, prompt 4,096, gen 8), qwen3-4b at 4
-     layers (batch 8, prompt 512, gen 16); prefill and decode times, peak
-     memory, then one more prefill and two more decode steps under
-     ``torch.profiler``;
+     layers (batch 8, prompt 512, gen 16), llama3.2-3b at full depth (28
+     layers; batch 8, prompt 64, gen 16), qwen3-8b at full depth (36
+     layers; batch 8, prompt 512, gen 16) and qwen3-32b at 16 of its 64
+     layers (batch 8, prompt 512, gen 16), the dense cells' parameter
+     counts asserted; the first RMSNorm launch at each of a run's shapes
+     held to its plain version as in phase 2; prefill and decode times,
+     peak memory, then one more
+     prefill and two more decode steps under ``torch.profiler``. Then
+     phase 3f, the backbone's train path (``repro_torch.launch.train``'s
+     ``setup`` and ``bytes_per_round``, the SFVI / SFVI-Avg steps of
+     ``launch.steps``, ``federated.driver.run_rounds``) in bf16 at full
+     width, J = 4, batch 8, sequence 64, lr 1e-3 (the JAX CLI's defaults),
+     every counter set to 0 just before each cell and read just after:
+     first one SFVI step and one SFVI-Avg barycenter step of qwen3-4b at
+     full width with one layer in f32 (B = 4, S = 16, J = 2, injected ε
+     and tokens) on the card and on the CPU (loss within 1e-4 relative,
+     every θ, η_G and η_L leaf within 1e-3 relative Frobenius), and one
+     SFVI step in bf16 (1e-3 and 1e-2); then
+     qwen3-4b at 36 layers, SFVI 3 steps (35,330,945,056 B a round) and
+     SFVI-Avg with ``avg_every`` 2, 4 steps (17,665,472,528 B), and
+     zamba2-7b at 12 layers, SFVI 3 steps (9,726,671,392 B), and
+     qwen3-4b at 36 layers at a long sequence: J = 2, batch 2, sequence
+     4,096, ``remat=True``, SFVI 3 steps (17,665,472,528 B; 72
+     ``chunked_attention`` calls and 36 ``checkpoint`` calls a step, none
+     in the other cells): s/step, peak
+     memory (under 80 GB), launches a step (2 reparam forwards and 2
+     backwards, 2 combines on a barycenter step, no flash, GLA or
+     RMSNorm), the loss each step, two more steps under ``torch.profiler``,
+     and every reparam and combine launch held to its plain version on its
+     own inputs;
   4. timings of each kernel, its plain version and, where one exists,
      PyTorch's own call(s) computing the same function (the upload and
      the mean combine also at multinomial's (25, 15,702) and ProdLDA's
@@ -197,7 +227,10 @@ non-zero):
      ``F.scaled_dot_product_attention``, RMSNorm against ``F.rms_norm``
      and a device copy of x (and, at decode's (8, 3,584), both calls'
      host time), GLA (with and without the final state) against no
-     library call; the square root at the
+     library call; the reparam kernels also at the train path's sizes
+     (N = 1,235,969, 1,843,712 and 4,943,876) and the combine at its
+     SFVI-Avg rows (4, 1,235,969); flash also at the GQA 3 and 8 shapes,
+     every flash row with a run column; the square root at the
      path's shapes and the wrapper's limit d against the 40 step calls it
      replaced (device and host wall time), and the step route one past the
      limit and at d = 64.
@@ -237,6 +270,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 from pathlib import Path
 from typing import NamedTuple
 
@@ -815,6 +849,8 @@ FLASH_CHECKS = [
     ("zamba2_prefill_64", 8, 64, 64, 32, 32, 112, True, None, 0, True),
     ("zamba2_prefill_4096", 4, 4096, 4096, 32, 32, 112, True, None, 0, True),
     ("qwen3_prefill_512", 8, 512, 512, 32, 8, 128, True, None, 0, True),
+    ("llama_gqa3_prefill_64", 8, 64, 64, 24, 8, 128, True, None, 0, True),
+    ("qwen3_32b_gqa8_prefill_512", 8, 512, 512, 64, 8, 128, True, None, 0, True),
     ("decode_q_offset", 8, 1, 4104, 32, 8, 128, True, None, 4103, False),
     ("window_128", 2, 1000, 1000, 32, 8, 128, True, 128, 0, False),
     ("non_causal", 2, 256, 384, 32, 8, 128, False, None, 0, False),
@@ -833,6 +869,10 @@ RMS_CHECKS = [
     ("mamba2_out_norm", 515, 7168),
     ("qwen3_d_model", 4099, 2560),
     ("qwen3_qk_norm", 8 * 512 * 32 + 5, 128),
+    ("llama3_2_3b_d_model", 8 * 64 + 3, 3072),
+    ("qwen3_8b_d_model", 8 * 512 + 3, 4096),
+    ("qwen3_32b_d_model", 8 * 512 + 3, 5120),
+    ("qwen3_32b_q_norm", 8 * 512 * 64 + 5, 128),
 ]
 
 
@@ -2055,27 +2095,32 @@ def profile_api(torch, label, exp, rounds=2):
 
 
 class PathRecorder:
-    """While the block runs, every call of a wire kernel's wrapper on the card
+    """While the block runs, every call of a kernel's wrapper on the card
     keeps a copy of its inputs and of what the kernel gave the path, so that
     :meth:`hold` can hold each launch the path made against the plain
     version on its own inputs: every (J, P) and every instantiation the
-    event loops reach, at their weights. The wrappers still count their
-    launches; :meth:`hold` launches nothing."""
+    event loops reach, at their weights; every reparam draw and backward of
+    a train step. The wrappers still count their launches; :meth:`hold`
+    launches nothing."""
 
     NAMES = ("fused_upload", "fused_combine", "sqrtm_newton_schulz_fused")
 
-    def __init__(self, torch, wire, phase="3d"):
-        self.torch, self.wire, self.calls, self.phase = torch, wire, [], phase
-        self.orig = {n: getattr(wire, n) for n in self.NAMES}
+    def __init__(self, torch, owner, phase="3d", names=NAMES):
+        """``owner``: the kernel module whose wrappers ``names`` are recorded
+        (``kernels.wire``, or ``kernels.reparam`` with ``reparam_fwd`` and
+        ``reparam_bwd``, which its autograd function calls)."""
+        self.torch, self.owner, self.calls, self.phase = torch, owner, [], phase
+        self.names = names
+        self.orig = {n: getattr(owner, n) for n in names}
 
     def __enter__(self):
         for name, fn in self.orig.items():
-            setattr(self.wire, name, self._wrap(name, fn))
+            setattr(self.owner, name, self._wrap(name, fn))
         return self
 
     def __exit__(self, *exc):
         for name, fn in self.orig.items():
-            setattr(self.wire, name, fn)
+            setattr(self.owner, name, fn)
 
     def _wrap(self, name, fn):
         import inspect
@@ -2133,6 +2178,20 @@ class PathRecorder:
                     ("trim" if tf is not None else "mean", True), ("int8", sc is not None),
                     ("w_not_0_1", bool(wl - {0.0, 1.0})), ("w_above_1", max(wl) > 1.0)] if on)
                 shape = tuple(x.shape)
+            elif name == "reparam_fwd":
+                (z, lq), (z0, lq0) = out, ref.reparam_stl_ref(kw["mu"], kw["log_sigma"], kw["eps"])
+                err = float((z.float() - z0.float()).abs().max())
+                lq_rel = abs(float(lq) - float(lq0)) / max(abs(float(lq0)), 1e-30)
+                ok = err <= 1e-5 * (1.0 + float(z0.float().abs().max())) and lq_rel <= 1e-5
+                mode, shape = f"{str(z.dtype)[6:]}, z and logq", tuple(z.shape)
+            elif name == "reparam_bwd":
+                want = ref.reparam_stl_bwd_ref(kw["log_sigma"], kw["eps"], kw["dz"], kw["dlq"])
+                err = max(float((a.float() - b.float()).abs().max())
+                          for a, b in zip(out, want, strict=True))
+                ok = err <= 1e-5 * (1.0 + max(float(b.float().abs().max()) for b in want))
+                # The train path takes z only: autograd hands the backward a zero dlq.
+                mode = "dlq=0" if float(kw["dlq"]) == 0.0 else "dlq!=0"
+                shape = tuple(kw["dz"].shape)
             else:
                 mat = kw["mat"]
                 want = ref.newton_schulz_sqrtm_ref(mat, kw["num_iters"])
@@ -2146,7 +2205,7 @@ class PathRecorder:
                   f"{n} launches, max err {err:.3e}, within phase 2's tolerance={ok}", flush=True)
             assert ok, (name, shape, mode)
         self.calls.clear()
-        return {k: sorted({shape[0] for (n, shape, _) in groups if n == k}) for k in self.NAMES}
+        return {k: sorted({shape[0] for (n, shape, _) in groups if n == k}) for k in self.names}
 
 
 class EventLoopClock:
@@ -2816,7 +2875,13 @@ SERVE_RUNS = [
     ("zamba2-7b 81 layers", "zamba2-7b", 81, 8, 64, 32, 4),
     ("zamba2-7b 12 layers, prompt 4096", "zamba2-7b", 12, 4, 4096, 8, 4),
     ("qwen3-4b 4 layers", "qwen3-4b", 4, 8, 512, 16, 4),
+    ("llama3.2-3b 28 layers", "llama3.2-3b", 28, 8, 64, 16, 4),
+    ("qwen3-8b 36 layers", "qwen3-8b", 36, 8, 512, 16, 4),
+    ("qwen3-32b 16 of 64 layers", "qwen3-32b", 16, 8, 512, 16, 4),
 ]
+# Parameters of the dense cells (the JAX package's init_params on each config).
+SERVE_PARAMS = {"llama3.2-3b": 3_212_749_824, "qwen3-8b": 8_190_735_360,
+                "qwen3-32b": 9_357_403_136}
 BACKBONE_COUNTS = ("flash_attention", "flash_attention_tc", "gla", "gla_tc", "rmsnorm")
 
 
@@ -2865,11 +2930,81 @@ def profile_serve(torch, run, steps=2) -> dict:
     return out
 
 
+class FirstLaunches:
+    """While the block runs, the first call on the card of the RMSNorm
+    wrapper at each (rows, D, x dtype, w dtype) keeps its inputs and output,
+    wherever the backbone's modules bound the wrapper: a module's name, or
+    a function's default argument (qk-norm's and mamba2's ``norm=``).
+    :meth:`hold` holds each against the plain version with phase 2's limits
+    (max-abs, and element by element in bf16), and checks that every launch
+    of the run went through the recorder. Later calls at a kept shape are
+    not copied; every call still counts its launch."""
+
+    def __init__(self, torch):
+        from repro_torch.kernels import rmsnorm
+
+        self.torch, self.orig, self.kept, self.calls = torch, rmsnorm.rmsnorm, {}, 0
+        self.patched = []  # (object, attribute, original value)
+
+    def __enter__(self):
+        orig, kept = self.orig, self.kept
+
+        def recorded(x, weight, eps=1e-6):
+            out = orig(x, weight, eps)
+            if x.is_cuda and x.numel():
+                self.calls += 1
+                key = (x.numel() // x.shape[-1], x.shape[-1], x.dtype, weight.dtype)
+                if key not in kept:
+                    kept[key] = (x.clone(), weight.clone(), eps, out.clone())
+            return out
+
+        for name, m in sorted(sys.modules.items()):
+            if not name.startswith("repro_torch.models."):
+                continue
+            for attr, v in list(vars(m).items()):
+                if v is orig:
+                    self.patched.append((m, attr, v))
+                elif isinstance(v, types.FunctionType) and any(
+                        d is orig for d in v.__defaults__ or ()):
+                    self.patched.append((v, "__defaults__", v.__defaults__))
+        for obj, attr, v in self.patched:
+            setattr(obj, attr, recorded if attr != "__defaults__"
+                    else tuple(recorded if d is orig else d for d in v))
+        return self
+
+    def __exit__(self, *exc):
+        for obj, attr, v in self.patched:
+            setattr(obj, attr, v)
+
+    def hold(self, ref, label, launches) -> int:
+        """Each kept launch against ``ref.rmsnorm_plain``; prints one line a
+        shape, asserts that the recorder saw all ``launches`` of the run, and
+        returns the number of shapes."""
+        assert self.calls == launches and self.kept, (label, self.calls, launches)
+        for (rows, D, xd, wd), (x, w, eps, got) in sorted(self.kept.items(), key=str):
+            want = ref.rmsnorm_plain(x, w, eps)
+            err = float((got.float() - want.float()).abs().max())
+            ok, line = _check_line("rmsnorm", err, want)
+            if xd == self.torch.bfloat16:
+                ratio = rms_bf16_ratio(self.torch, got, want)
+                line += f", elementwise {ratio:.3f} of 2^-7 |want| (<= 1)"
+                ok = ok and ratio <= 1.0
+            print(f"  phase 3b {label}: first rmsnorm launch at ({rows},{D}) x "
+                  f"{str(xd)[6:]} w {str(wd)[6:]} held to its plain version: {line}",
+                  flush=True)
+            assert ok, (label, rows, D, xd, wd)
+        n = len(self.kept)
+        self.kept.clear()
+        return n
+
+
 def serve_runs(torch, kernel_modules, other_modules):
     """Each serve run with the backbone counters at 0 just before and read
     just after; asserts the launches each kernel owes the run, finite
     logits, that no other kernel launched, and that no prefill called
-    ``gla_final_state`` (mamba2's decode state comes from the GLA kernel)."""
+    ``gla_final_state`` (mamba2's decode state comes from the GLA kernel).
+    The first RMSNorm launch at each shape of each run is held to its plain
+    version (:class:`FirstLaunches`)."""
     from repro_torch.models.backbone import ssm
 
     final_state_calls = []
@@ -2888,6 +3023,7 @@ def serve_runs(torch, kernel_modules, other_modules):
 
 def _serve_runs(torch, kernel_modules, other_modules, final_state_calls):
     from repro_torch.configs import get_config
+    from repro_torch.kernels import ref
     from repro_torch.launch.serve_backbone import serve
 
     totals = {k: 0 for k in BACKBONE_COUNTS}
@@ -2900,9 +3036,10 @@ def _serve_runs(torch, kernel_modules, other_modules, final_state_calls):
         for m in kernel_modules + other_modules:
             m.reset_launches()
         final_state_calls.clear()
-        run = serve(cfg, batch=B, prompt_len=prompt, gen=gen_len, silos=silos,
-                    device=torch.device(DEVICE))
-        sync(torch)
+        with FirstLaunches(torch) as first:
+            run = serve(cfg, batch=B, prompt_len=prompt, gen=gen_len, silos=silos,
+                        device=torch.device(DEVICE))
+            sync(torch)
         counts = counters(kernel_modules)
         others = counters(other_modules)
         peak = torch.cuda.max_memory_allocated()
@@ -2925,11 +3062,13 @@ def _serve_runs(torch, kernel_modules, other_modules, final_state_calls):
               f"gla_final_state calls={len(final_state_calls)}", flush=True)
         assert bool(torch.isfinite(run.logits.float()).all()), label
         assert tuple(run.tokens.shape) == (B, gen_len), label
+        assert res["params"] == SERVE_PARAMS.get(arch, res["params"]), (label, res["params"])
         assert counts == want, (label, counts, want)
         assert not any(others.values()), (label, others)
         assert not final_state_calls, (label, "gla_final_state called", len(final_state_calls))
         for k in totals:
             totals[k] += counts[k]
+        res["rmsnorm_shapes_held"] = first.hold(ref, label, counts["rmsnorm"])
         res["profile"] = profile_serve(torch, run)
         results.append(res)
         del run
@@ -2937,6 +3076,240 @@ def _serve_runs(torch, kernel_modules, other_modules, final_state_calls):
     assert totals["flash_attention"] == 0 and totals["gla"] == 0, totals
     assert all(totals[k] > 0 for k in BACKBONE_COUNTS if k not in ("flash_attention", "gla")), \
         totals
+    return totals, results
+
+
+# ---------------------------------------------------------------------------
+# Phase 3f: the backbone's train path at full width
+# ---------------------------------------------------------------------------
+
+TRAIN_J, TRAIN_B, TRAIN_S, TRAIN_LR = 4, 8, 64, 1e-3  # the JAX CLI's defaults
+TRAIN_RUNS = [
+    # (label, arch, layers, algo, counted steps, avg_every, parameters, bytes a round,
+    #  silos, batch, sequence, remat)
+    ("qwen3-4b 36 layers SFVI", "qwen3-4b", 36, "sfvi", 3, 2, 4_411_424_256,
+     35_330_945_056, TRAIN_J, TRAIN_B, TRAIN_S, False),
+    ("qwen3-4b 36 layers SFVI-Avg", "qwen3-4b", 36, "avg", 4, 2, 4_411_424_256,
+     17_665_472_528, TRAIN_J, TRAIN_B, TRAIN_S, False),
+    ("zamba2-7b 12 layers SFVI", "zamba2-7b", 12, "sfvi", 3, 2, 1_214_691_872,
+     9_726_671_392, TRAIN_J, TRAIN_B, TRAIN_S, False),
+    # 8,192 tokens a step at a sequence past CHUNKED_MIN_S: chunked attention
+    # and each unit recomputed in the backward (remat), as a long-context
+    # run trains; J = 2 keeps the recomputed unit's attention blocks in memory.
+    ("qwen3-4b 36 layers SFVI, S 4096, remat", "qwen3-4b", 36, "sfvi", 3, 2, 4_411_424_256,
+     17_665_472_528, 2, 2, 4096, True),
+]
+TRAIN_COUNTS = ("reparam_stl_fwd", "reparam_stl_bwd", "fused_combine")
+CARD_GB = 80e9  # the card's memory
+
+
+def train_launches(algo, steps, avg_every):
+    """Launches a train run owes: two reparam draws (z_G, and the stacked
+    z_L) and their two backwards a step; two combines (the barycenter's μ
+    and σ rows) on each due SFVI-Avg step; no backbone kernel."""
+    due = sum(1 for i in range(steps) if (i + 1) % avg_every == 0) if algo == "avg" else 0
+    return {"reparam_stl_fwd": 2 * steps, "reparam_stl_bwd": 2 * steps,
+            "fused_combine": 2 * due, **{k: 0 for k in BACKBONE_COUNTS}}
+
+
+def train_batches(torch, cfg, steps, B, S):
+    from repro_torch.device import generator
+    from repro_torch.launch import train
+
+    toks = train.make_batches(generator(train.DATA_SEED, torch.device("cpu")), cfg, B, S, steps)
+    out = []
+    for t in toks:
+        t = torch.from_numpy(t).to(device=DEVICE, dtype=torch.long)
+        out.append({"tokens": t[:, :-1], "labels": t[:, 1:]})
+    return out
+
+
+def profile_train(torch, step_fn, state, batches, start) -> dict:
+    """``len(batches)`` more steps of a train run under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i, b in enumerate(batches):
+            state, _ = step_fn(state, b, start + i)
+        sync(torch)
+        wall = time.perf_counter() - t0
+    return {"steps": len(batches), **profile_summary(prof, wall, top=12)}
+
+
+def train_run(torch, modules, label, arch, layers, algo, steps, avg_every, want_params,
+              want_bytes, J, B, S, remat):
+    """One train cell through the CLI's pieces (``train.setup``, the step,
+    ``run_rounds``) with every counter at 0 just before and read just after.
+    Asserts the parameters, the bytes a round, each step's launches, finite
+    losses, the peak under the card's memory, and the calls of
+    ``chunked_attention`` (2 an attention layer a step under ``remat``: the
+    forward and the backward's recompute; 1 without; 0 up to
+    ``CHUNKED_MIN_S`` tokens) and of ``checkpoint`` (one a unit a step under
+    ``remat``, else none); profiles 2 more steps."""
+    from repro_torch.configs import get_config
+    from repro_torch.federated.driver import run_rounds
+    from repro_torch.federated.metering import CommMeter
+    from repro_torch.launch import train
+    from repro_torch.models.backbone import attention as attn_model
+    from repro_torch.models.backbone import transformer
+    from repro_torch.models.backbone.transformer import param_count, unit_structure
+
+    cfg = dataclasses.replace(get_config(arch), num_layers=layers)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state, step_fn = train.setup(cfg, algo, J, TRAIN_LR, avg_every, torch.device(DEVICE),
+                                 remat=remat)
+    sync(torch)
+    setup_s = time.perf_counter() - t0
+    params = param_count(state.theta)
+    per_round = train.bytes_per_round(state, algo, J, avg_every)
+    assert params == want_params, (label, params)
+    assert per_round == want_bytes, (label, per_round, want_bytes)
+    batches = train_batches(torch, cfg, steps + 2, B, S)
+    stamps, per_step = [], []
+    for m in modules:
+        m.reset_launches()
+    sync(torch)
+    t0 = time.perf_counter()
+
+    def on_metrics(i, metrics, st):
+        sync(torch)
+        stamps.append(time.perf_counter())
+        per_step.append(counters(modules))
+
+    meter = CommMeter()
+    calls = {"chunked_attention": [], "checkpoint": []}
+    with Patched(attn_model, "chunked_attention", calls["chunked_attention"]), \
+            Patched(transformer, "checkpoint", calls["checkpoint"]):
+        state, hist = run_rounds(lambda st, b, i: step_fn(st, b, i), state, batches[:steps],
+                                 meter=meter, bytes_per_round=(per_round, per_round),
+                                 on_metrics=on_metrics)
+    counts = counters(modules)
+    peak = torch.cuda.max_memory_allocated()
+    step_s = [b - a for a, b in zip([t0] + stamps[:-1], stamps)]
+    launches = [{k: n - prev.get(k, 0) for k, n in now.items() if n - prev.get(k, 0)}
+                for prev, now in zip([{}] + per_step[:-1], per_step)]
+    want = train_launches(algo, steps, avg_every)
+    unit, n_units, tail = unit_structure(cfg)
+    n_attn = unit.count("attn") * n_units + tail.count("attn")
+    chunked = n_attn * steps * (2 if remat else 1) if S > attn_model.CHUNKED_MIN_S else 0
+    called = {k: len(v) for k, v in calls.items()}
+    res = {
+        "train": label, "arch": arch, "layers": layers, "algo": algo, "params": params,
+        "silos": J, "batch": B, "seq": S, "tokens_per_step": B * S, "remat": remat,
+        "lr": TRAIN_LR, "avg_every": avg_every if algo == "avg" else None, "setup_s": setup_s,
+        "s_per_step": step_s, "median_after_first": statistics.median(step_s[1:]),
+        "peak_gb": peak / 1e9, "bytes_per_round": per_round,
+        "meter_bytes": meter.total, "loss": hist["loss"], "launches": counts,
+        "launches_per_step": launches, "calls": called,
+    }
+    print(f"  {label}: loss={['%.4f' % v for v in hist['loss']]} s/step="
+          f"{['%.3f' % v for v in step_s]} peak {res['peak_gb']:.2f} GB, params {params:,}, "
+          f"bytes/round {per_round:,}, launches={counts}, per step {launches}, "
+          f"calls={called}", flush=True)
+    assert all(math.isfinite(v) for v in hist["loss"]), label
+    assert called == {"chunked_attention": chunked,
+                      "checkpoint": n_units * steps if remat else 0}, (label, called)
+    assert meter.total == 2 * per_round * steps, (label, meter.total)
+    assert {k: counts[k] for k in want} == want, (label, counts, want)
+    assert peak < CARD_GB, (label, peak)
+    res["profile"] = profile_train(torch, step_fn, state, batches[steps:], steps)
+    del state
+    return res, counts
+
+
+# (algorithm, backbone dtype, loss limit, leaf limit) of the card-against-CPU
+# steps. bf16: θ, its gradients and Adam's μ round to 8 bits on both sides,
+# so a leaf may part by a few bf16 steps where the two sides' sums round
+# otherwise; the limits are stated, not derived.
+TRAIN_PARITY = [("sfvi", "float32", 1e-4, 1e-3), ("avg", "float32", 1e-4, 1e-3),
+                ("sfvi", "bfloat16", 1e-3, 1e-2)]
+
+
+def check_train_cuda_vs_cpu(torch):
+    """qwen3-4b at full width with one layer, B = 4, S = 16, J = 2: the same
+    state (drawn on the CPU), tokens and ε through one step on the card and
+    on the CPU, for each of ``TRAIN_PARITY``: SFVI and SFVI-Avg with its
+    barycenter (``avg_every`` 1) in f32 (loss within 1e-4 relative, every θ,
+    η_G and η_L leaf within 1e-3 relative Frobenius), and SFVI in bf16 (the
+    train cells' dtype: 1e-3 and 1e-2). The largest leaf gap printed."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import steps as S
+    from repro_torch.models.backbone.bayes import latent_dims
+    from repro_torch.tree import tree_leaves, tree_map
+
+    J, B, T = 2, 4, 16
+    out = {}
+    for algo, dtype, loss_tol, leaf_tol in TRAIN_PARITY:
+        cfg = dataclasses.replace(get_config("qwen3-4b"), num_layers=1, dtype=dtype)
+        n_G, n_L = latent_dims(cfg)
+        g = torch.Generator().manual_seed(5)
+        state, opt = S.init_train_state(g, cfg, J, lr=TRAIN_LR)
+        if algo == "avg":
+            eta_G = S.init_eta_G_silo(g, cfg, J)
+            state = S.TrainState(state.theta, eta_G, state.eta_L, state.opt_theta,
+                                 opt.init(eta_G), state.opt_eta_L, state.step)
+            step = S.make_train_step_avg(cfg, J, 1, lr=TRAIN_LR, remat=False)
+            draws = (torch.randn((J, n_G), generator=g), torch.randn((J, n_L), generator=g))
+        else:
+            step = S.make_train_step(cfg, J, lr=TRAIN_LR, remat=False)
+            draws = (torch.randn((n_G,), generator=g), torch.randn((J, n_L), generator=g))
+        tok = torch.randint(0, cfg.vocab_size, (B, T + 1), generator=g)
+        batch = {"tokens": tok[:, :-1], "labels": tok[:, 1:]}
+        fields = [f.name for f in dataclasses.fields(S.TrainState)]
+        # A copy (the step updates its state in place), even where DEVICE is the CPU.
+        dev_state = S.TrainState(**{f: tree_map(lambda a: a.to(DEVICE, copy=True),
+                                                getattr(state, f))
+                                    if f != "step" else state.step for f in fields})
+        to_dev = lambda tree: tree_map(lambda a: a.to(DEVICE), tree)  # noqa: E731
+        t0 = time.perf_counter()
+        st_card, m_card = step(dev_state, to_dev(batch), 0, draws=to_dev(draws))
+        sync(torch)
+        card_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        st_cpu, m_cpu = step(state, batch, 0, draws=draws)
+        cpu_s = time.perf_counter() - t0
+        loss_rel = abs(float(m_card["loss"]) - float(m_cpu["loss"])) / abs(float(m_cpu["loss"]))
+        gaps = []
+        for name in ("theta", "eta_G", "eta_L"):
+            for a, b in zip(tree_leaves(getattr(st_card, name)), tree_leaves(getattr(st_cpu, name)),
+                            strict=True):
+                a, b = a.cpu().double(), b.double()
+                gaps.append(float(torch.linalg.norm((a - b).flatten())
+                                  / torch.linalg.norm(b.flatten())))
+        print(f"  train {DEVICE} vs cpu [qwen3-4b, 1 layer at full width, {dtype}, {algo}, "
+              f"J={J}, B={B}, S={T}]: loss {float(m_card['loss']):.6f} vs "
+              f"{float(m_cpu['loss']):.6f} rel={loss_rel:.2e} (<= {loss_tol:g}), largest leaf "
+              f"gap {max(gaps):.2e} of {len(gaps)} leaves (relative Frobenius, <= {leaf_tol:g}); "
+              f"card {card_s:.1f} s, cpu {cpu_s:.1f} s", flush=True)
+        assert loss_rel <= loss_tol and max(gaps) <= leaf_tol, (algo, dtype, loss_rel, max(gaps))
+        if algo == "avg":  # the barycenter ran: the silos' rows coincide
+            assert float((st_card.eta_G["mu"][0] - st_card.eta_G["mu"][1]).abs().max()) == 0.0
+        out[f"{algo}_{dtype}"] = {"loss_rel": loss_rel, "max_leaf_gap": max(gaps)}
+        del state, st_cpu, st_card, dev_state
+    return out
+
+
+def train_runs(torch, ref, reparam, wire, backbone_modules):
+    """Phase 3f: the card-against-CPU steps, then every ``TRAIN_RUNS`` cell;
+    every reparam and combine launch of the cells held to its plain version.
+    Returns the cells' summed launches and their result lines."""
+    modules = [reparam, wire] + backbone_modules
+    parity = check_train_cuda_vs_cpu(torch)
+    print(json.dumps({"train_cuda_vs_cpu": parity}), flush=True)
+    totals, results = {k: 0 for k in TRAIN_COUNTS}, []
+    for run in TRAIN_RUNS:
+        with PathRecorder(torch, reparam, phase="3f", names=("reparam_fwd", "reparam_bwd")) \
+                as rec_r, PathRecorder(torch, wire, phase="3f", names=("fused_combine",)) as rec_w:
+            res, counts = train_run(torch, modules, *run)
+        held = {**rec_r.hold(ref), **rec_w.hold(ref)}
+        res["held_to_plain"] = held
+        results.append(res)
+        for k in totals:
+            totals[k] += counts[k]
+        torch.cuda.empty_cache()
     return totals, results
 
 
@@ -3014,11 +3387,13 @@ def run_ms(torch, fn, args, launches=RUN_LAUNCHES, reps=5):
 def timed(torch, fn, args, run=True, **kw):
     """``(ms, run_ms)`` of ``fn(*args)``: one launch behind a sleep
     (:func:`device_ms`), and a run of launches (:func:`run_ms`), which a
-    row whose single launch exceeds ``RUN_MAX_MS`` skips (None), as does a
-    call of many launches (``run=False``: a run of them would fill the
-    card's launch queue before the sleep ends)."""
+    row whose single launch exceeds ``RUN_MAX_MS`` skips (None) unless
+    ``run="long"`` (a kernel, and its library call, that is one launch
+    however long), as does a call of many launches (``run=False``: a run of
+    them would fill the card's launch queue before the sleep ends)."""
     ms = device_ms(torch, lambda: fn(*args), **kw)
-    return ms, (run_ms(torch, fn, args) if run and ms <= RUN_MAX_MS else None)
+    return ms, (run_ms(torch, fn, args) if run == "long" or (run and ms <= RUN_MAX_MS)
+                else None)
 
 
 def time_row(torch, name, mode, kernel, plain, library=None, **row):
@@ -3026,10 +3401,11 @@ def time_row(torch, name, mode, kernel, plain, library=None, **row):
     or None) timed both ways, the plain version (a no-argument call) one
     launch at a time."""
     fn, args = kernel
-    ms, run = timed(torch, fn, args, run=row.pop("run", True), **row.pop("kernel_kw", {}))
+    run_mode = row.pop("run", True)
+    ms, run = timed(torch, fn, args, run=run_mode, **row.pop("kernel_kw", {}))
     lib_ms = lib_run = None
     if library is not None:
-        lib_ms, lib_run = timed(torch, *library)
+        lib_ms, lib_run = timed(torch, *library, run="long" if run_mode == "long" else True)
     plain_ms = device_ms(torch, plain, **row.pop("plain_kw", {}))
     return dict(name=name, mode=mode, ms=ms, run_ms=run, plain_ms=plain_ms, library_ms=lib_ms,
                 library_run_ms=lib_run, **row)
@@ -3109,9 +3485,10 @@ def timings(np, torch, wire, ref, reparam, attention, gla, rmsnorm, gen):
     # multinomial's (25, 15,702) and ProdLDA's (3, 84,002).
     for Jp, Pp in PAPER_SHAPES[1:]:
         rows += wire_rows(torch, wire, ref, Jp, Pp, gen, suffix=f"_{Jp}x{Pp}")[0]
-    # The combine kernel at the barycenter's shapes: the glmm means (2, 5)
-    # and hier_bnn's moment rows (10, 50,177).
-    for Jc, Pc in [(2, 5), (10, 50_177)]:
+    # The combine kernel at the barycenter's shapes: the glmm means (2, 5),
+    # hier_bnn's moment rows (10, 50,177) and the train path's SFVI-Avg rows
+    # of qwen3-4b (4, 1,235,969).
+    for Jc, Pc in [(2, 5), (10, 50_177), (4, 1_235_969)]:
         xc = torch.randn((Jc, Pc), generator=gen, device=DEVICE)
         wc = torch.ones((Jc,), device=DEVICE)
         denom = torch.sum(wc)
@@ -3236,12 +3613,18 @@ def ns_timings(torch, wire, ref, gen):
     return rows
 
 
+# The reparam kernels' f32 sizes: hier_bnn's J x local dim and global dim,
+# then the train path's: qwen3-4b's n_G (z_G), J x n_L (z_L) and J x n_G
+# (SFVI-Avg's per-silo z_G), J = 4.
+REPARAM_TIMES = (508_160, 50_177, 1_235_969, 1_843_712, 4_943_876)
+
+
 def reparam_timings(torch, reparam, ref, gen):
-    """Forward and backward in f32 at hier_bnn's J x local dim and at its
-    global dim. The forward's yardstick is ``torch.addcmul(mu, ls.exp(),
-    eps)`` for z; no single PyTorch call computes the backward."""
+    """Forward and backward in f32 at ``REPARAM_TIMES``. The forward's
+    yardstick is ``torch.addcmul(mu, ls.exp(), eps)`` for z; no single
+    PyTorch call computes the backward."""
     rows = []
-    for n in (508_160, 50_177):
+    for n in REPARAM_TIMES:
         mu, ls, eps, dz = (torch.randn((n,), generator=gen, device=DEVICE) for _ in range(4))
         ls = 0.3 * ls - 1.0
         dlq = torch.tensor(0.37, device=DEVICE)
@@ -3267,7 +3650,9 @@ def flash_work(B, Sq, Skv, H, KV, hd, elt):
 
 FLASH_TIMES = [("zamba2_prefill_4096_bf16", 4, 4096, 32, 32, 112),
                ("zamba2_prefill_64_bf16", 8, 64, 32, 32, 112),
-               ("qwen3_prefill_512_bf16", 8, 512, 32, 8, 128)]
+               ("qwen3_prefill_512_bf16", 8, 512, 32, 8, 128),
+               ("llama_gqa3_prefill_64_bf16", 8, 64, 24, 8, 128),
+               ("qwen3_32b_gqa8_prefill_512_bf16", 8, 512, 64, 8, 128)]
 GLA_TIMES = [("zamba2_prefill_4096_bf16", 4, 4096, 112, 64, 64),
              ("zamba2_prefill_64_bf16", 8, 64, 112, 64, 64)]
 RMS_TIMES = [("d3584_r16384_bf16", 4 * 4096, 3584), ("d7168_r16384_bf16", 4 * 4096, 7168),
@@ -3303,13 +3688,13 @@ def backbone_timings(torch, attention, gla, rmsnorm, ref, gen):
                 (lambda q, k, v, r=q_rows: attention.flash_attention(q, k, v, q_rows=r),
                  (q, k, v)),
                 lambda q=q, k=k, v=v: ref.flash_attention_plain(q, k, v),
-                (library, (qt, kt, vt)), plain_kw=dict(reps=5, warmup=1),
+                (library, (qt, kt, vt)), plain_kw=dict(reps=5, warmup=1), run="long",
                 nbytes=nbytes, flops=flops, peak=BF16_FLOPS, shape=[B, S, H, KV, hd]))
     for mode, B, S, H, N, P in GLA_TIMES:
         q, k, v, log_a = gla_inputs(torch, B, S, H, N, P, True, gen, bf16)
         qg, kg = q[:, :, :1], k[:, :, :1]  # the (B, S, 1, N) groups mamba2 expands
         # The serve path's call (mamba2_prefill: y and the final state) carries
-        # the plain mode name; "_nostate" is y alone (mamba2_block).
+        # the plain mode name; "_nostate" is y alone.
         for with_state in (True, False):
             rows.append(time_row(
                 torch, "gla", mode + ("" if with_state else "_nostate"),
@@ -3357,9 +3742,9 @@ KERNELS = {
     "sqrtm_newton_schulz": ("src/repro_torch/csrc/newton_schulz.cu",
                             "src/repro/kernels/wire.py:335", "B2_d5"),
     "reparam_stl_fwd": ("src/repro_torch/csrc/reparam.cu", "src/repro/kernels/reparam.py:57",
-                        "f32_N508160"),
+                        "f32_N1843712"),
     "reparam_stl_bwd": ("src/repro_torch/csrc/reparam.cu", "src/repro/kernels/reparam.py:128",
-                        "f32_N508160"),
+                        "f32_N1843712"),
     "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                         "src/repro/kernels/attention.py:98", "zamba2_prefill_4096_bf16"),
     "gla": ("src/repro_torch/csrc/gla.cu", "src/repro/kernels/gla.py:73",
@@ -3377,11 +3762,12 @@ KERNEL_COUNTER = {"flash_attention": "flash_attention_tc", "gla": "gla_tc"}
 def kernels_line(rows, launches, errors):
     """The ``kernels`` entries: each kernel's row at its main-path shape.
 
-    ``launches`` are the main-path runs' counts (the federated rounds for the
-    wire kernels, the three serve runs for the backbone's); the reparam
-    kernels are on no round's path (as in the JAX package), so theirs is 0,
-    and neither is the step kernel: the barycenter's d = 5 roots take the
-    square-root kernel, and the step serves only d past its limit.
+    ``launches`` are the main-path runs' counts (the federated rounds and
+    the train cells' barycenters for the combine, the serve runs for the
+    backbone's, the train cells for the reparam kernels, at qwen3-4b's
+    J x n_L); the step kernel is on no path: the barycenter's d = 5 roots
+    take the square-root kernel, and the step serves only d past its
+    limit.
     """
     by_mode = {(r["name"], r["mode"]): r for r in rows}
     out = []
@@ -3489,13 +3875,21 @@ def main(timings_only: bool = False) -> int:
     for res in serve_results:
         print(json.dumps(res), flush=True)
     lap("3b serve runs")
+    print("phase 3f: backbone train cells at full width (bf16; SFVI and SFVI-Avg)", flush=True)
+    tr_totals, train_results = train_runs(torch, ref, reparam, wire, [attention, gla, rmsnorm])
+    for res in train_results:
+        print(json.dumps(res), flush=True)
+    totals["fused_combine"] += tr_totals["fused_combine"]
+    print(json.dumps({"phase_3f_launches": tr_totals}), flush=True)
+    lap("3f train cells")
 
     # Phase 4: timings.
     print("phase 4: timings", flush=True)
     rows = timings(np, torch, wire, ref, reparam, attention, gla, rmsnorm, gen)
     lap("4 timings")
     print(json.dumps({"phase_s": phase_s}), flush=True)
-    kernels = kernels_line(rows, {**totals, **bb_totals},
+    kernels = kernels_line(rows, {**totals, **bb_totals,
+                                  **{k: tr_totals[k] for k in reparam.LAUNCHES}},
                            {"fused_upload": err_up, "fused_combine": err_co,
                             **err_ns, **err_rp, **err_bb})
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,28 +1,30 @@
 """Architecture configs of the port: ``get_config("zamba2-7b")``.
 
-The port's backbone slice serves the two architectures whose blocks reach
-flash attention, GLA and RMSNorm without MoE, enc-dec or vision modules:
-zamba2-7b (mamba2 + shared attention) and qwen3-4b (dense GQA with
-qk-norm). The JAX package's other registry names raise a ``KeyError``
+The port's backbone serves (and trains) the architectures whose blocks
+reach flash attention, GLA and RMSNorm without MoE, enc-dec or vision
+modules: zamba2-7b (mamba2 + shared attention), the dense GQA models
+qwen3-4b, qwen3-8b and qwen3-32b (qk-norm) and llama3.2-3b (tied
+embeddings). The JAX package's other registry names raise a ``KeyError``
 that says which work brings them.
 """
 from __future__ import annotations
 
 from typing import Dict
 
+from repro_torch.configs.llama3_2_3b import CONFIG as _llama3_2_3b
 from repro_torch.configs.qwen3_4b import CONFIG as _qwen3_4b
+from repro_torch.configs.qwen3_8b import CONFIG as _qwen3_8b
+from repro_torch.configs.qwen3_32b import CONFIG as _qwen3_32b
 from repro_torch.configs.zamba2_7b import CONFIG as _zamba2
 from repro_torch.models.backbone.config import INPUT_SHAPES, ArchConfig, InputShape
 
-REGISTRY: Dict[str, ArchConfig] = {c.name: c for c in [_zamba2, _qwen3_4b]}
+REGISTRY: Dict[str, ArchConfig] = {
+    c.name: c for c in [_zamba2, _qwen3_4b, _qwen3_8b, _qwen3_32b, _llama3_2_3b]}
 
 ARCH_NAMES = tuple(REGISTRY)
 
 # The JAX package's other configs, and the backbone modules each still needs.
 NOT_PORTED = {
-    "qwen3-8b": "its config file (dense GQA, like qwen3-4b)",
-    "qwen3-32b": "its config file (dense GQA, like qwen3-4b)",
-    "llama3.2-3b": "its config file (dense GQA)",
     "whisper-base": "the whisper encoder and cross-attention",
     "olmoe-1b-7b": "the MoE block",
     "phi3.5-moe-42b-a6.6b": "the MoE block",

@@ -9,13 +9,14 @@ name (``ScaleByAdamState``, ...). The two packages keep one state
 layout, so this is a leaf-by-leaf copy. ``datas_from_numpy`` does the
 same for silo data dicts. ``backbone_params_from_jax`` copies a JAX
 backbone parameter tree (pulled to numpy) into the port's layout, which
-is the same nested dict.
+is the same nested dict; ``train_state_from_jax`` a JAX backbone
+``TrainState`` (θ, η_G, η_L and their three Adam states).
 
 Nothing here imports the reference: the input is plain numpy.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Sequence
+from typing import TYPE_CHECKING, Any, Dict, List, Sequence
 
 import numpy as np
 import torch
@@ -23,6 +24,9 @@ import torch
 from repro_torch.optim.adam import AdamWState, ScaleByAdamState
 from repro_torch.optim.base import ScaleByScheduleState
 from repro_torch.optim.sgd import MomentumState
+
+if TYPE_CHECKING:
+    from repro_torch.launch.steps import TrainState
 
 _STATE_CLASSES = {cls.__name__: cls for cls in (
     ScaleByAdamState, AdamWState, MomentumState, ScaleByScheduleState)}
@@ -42,7 +46,7 @@ def _convert(x: Any, device: torch.device) -> Any:
         return _STATE_CLASSES[name](*[_convert(v, device) for v in x])
     if isinstance(x, (tuple, list)):
         return type(x)(_convert(v, device) for v in x)
-    return torch.as_tensor(np.array(x, copy=True), device=device)
+    return _leaf_to_torch(x, device)
 
 
 def from_jax_state(state_np: Dict[str, Any], device) -> Dict[str, Any]:
@@ -91,3 +95,22 @@ def backbone_params_from_jax(params_np: Dict[str, Any], device) -> Dict[str, Any
         return _leaf_to_torch(x, device)
 
     return walk(params_np)
+
+
+def train_state_from_jax(state_np: Any, device) -> TrainState:
+    """A JAX backbone ``TrainState`` with numpy leaves
+    (``jax.tree_util.tree_map(np.asarray, state)``) -> the port's
+    :class:`~repro_torch.launch.steps.TrainState` on ``device``: θ, η_G,
+    η_L and the three Adam states (count, μ, ν) leaf by leaf, bf16 bit for
+    bit; ``step`` becomes a host int. (The launch layer is imported here,
+    so that this module stays a leaf.)"""
+    from repro_torch.launch.steps import TrainState
+
+    device = torch.device(device)
+    return TrainState(
+        theta=_convert(state_np.theta, device), eta_G=_convert(state_np.eta_G, device),
+        eta_L=_convert(state_np.eta_L, device),
+        opt_theta=_convert(state_np.opt_theta, device),
+        opt_eta_G=_convert(state_np.opt_eta_G, device),
+        opt_eta_L=_convert(state_np.opt_eta_L, device),
+        step=int(np.asarray(state_np.step)))

@@ -1,16 +1,19 @@
 """Synthetic data (numpy), after ``repro.data.synthetic``: the MNIST
-stand-in, the LDA corpus and the six-cities GLMM data.
+stand-in, the LDA corpus, the six-cities GLMM data and the LLM drivers'
+Zipf token stream.
 
 The reference draws with ``jax.random``; this version draws from a numpy
-``Generator``, so its data differ from the reference's for the same
-seed. Parity tests stage data with the reference and hand the arrays to
-the port (``datas=`` on the registry builders).
+``Generator`` (the token stream from a ``torch.Generator``), so its data
+differ from the reference's for the same seed. Parity tests stage data
+with the reference and hand the arrays to the port (``datas=`` on the
+registry builders; tokens to the train step).
 """
 from __future__ import annotations
 
 import dataclasses
 
 import numpy as np
+import torch
 
 
 @dataclasses.dataclass
@@ -103,3 +106,22 @@ def make_six_cities(rng: np.random.Generator, num_children: int = 537) -> tuple:
     y = (rng.random(logits.shape) < 1.0 / (1.0 + np.exp(-logits))).astype(np.float32)
     data = {"smoke": smoke, "age": age, "y": y}
     return data, {"beta": true_beta, "omega": float(true_omega)}
+
+
+def zipf_probs(vocab_size: int, zipf_a: float = 1.2) -> np.ndarray:
+    """Zipf(a) unigram probabilities over ranks 1..V: normalized in float64,
+    then float32, as the reference hands them to ``jax.random.choice``."""
+    ranks = np.arange(1, vocab_size + 1, dtype=np.float64)
+    probs = ranks ** (-zipf_a)
+    probs /= probs.sum()
+    return probs.astype(np.float32)
+
+
+def make_token_stream(gen: torch.Generator, num_tokens: int, vocab_size: int,
+                      zipf_a: float = 1.2) -> np.ndarray:
+    """Zipf-distributed token stream for the LLM training driver: (num_tokens,)
+    int32 ids drawn with replacement from :func:`zipf_probs` on ``gen``'s
+    device (torch's stream, not the reference's threefry one)."""
+    probs = torch.from_numpy(zipf_probs(vocab_size, zipf_a)).to(gen.device)
+    tokens = torch.multinomial(probs, num_tokens, replacement=True, generator=gen)
+    return tokens.to(torch.int32).cpu().numpy()

@@ -15,7 +15,7 @@ from typing import Tuple
 
 import torch
 
-from repro_torch.models.backbone.config import ArchConfig
+from repro_torch.models.backbone.config import ArchConfig, check_port_supported
 
 
 def latent_dims(cfg: ArchConfig) -> Tuple[int, int]:
@@ -79,3 +79,11 @@ def token_nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     logz = torch.logsumexp(lf, dim=-1)
     gold = torch.gather(lf, -1, labels[..., None].long())[..., 0]
     return torch.sum(logz - gold)
+
+
+def silo_log_lik(cfg: ArchConfig, base_logits_j: torch.Tensor, h_j: torch.Tensor,
+                 z_G: torch.Tensor, z_Lj: torch.Tensor, labels_j: torch.Tensor) -> torch.Tensor:
+    """log p(y_j | Z_G, Z_Lj, θ) for one silo's batch shard. The JAX
+    package's ``cfg.perf.masked_nll`` (a sharding lever) raises here."""
+    check_port_supported(cfg)
+    return -token_nll(bayes_logits(cfg, base_logits_j, h_j, z_G, z_Lj), labels_j)

@@ -4,7 +4,10 @@ Counterparts of ``repro/models/backbone/layers.py``: params are nested
 dicts of tensors, weights laid out (in, out), activations in
 ``cfg.dtype``; norms accumulate in f32. :func:`rmsnorm` is the kernel
 wrapper (:mod:`repro_torch.kernels.rmsnorm`): the CUDA kernel for a
-tensor on the card, its plain version for one on the CPU.
+tensor on the card, its plain version for one on the CPU. It has no
+backward, so the train mode normalizes with :func:`rmsnorm_train`, the
+counterpart of the JAX package's jnp ``rmsnorm`` (``layers.py:35``), which
+is what the reference differentiates.
 
 Initializers draw from an explicit ``torch.Generator`` (on the device the
 tensors live on) with the JAX package's shapes and scales; the numbers
@@ -38,6 +41,13 @@ def dense_init(gen: torch.Generator, in_dim: int, out_dim: int, dtype: torch.dty
 
 def rmsnorm_init(dim: int, dtype: torch.dtype, device) -> torch.Tensor:
     return torch.ones((dim,), dtype=dtype, device=device)
+
+
+def rmsnorm_train(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """x · rsqrt(mean x² + eps) · w in f32, back in x's dtype; differentiable."""
+    x32 = x.float()
+    rms = torch.rsqrt(torch.mean(x32 * x32, dim=-1, keepdim=True) + eps)
+    return ((x32 * rms) * weight.float()).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -7,11 +7,14 @@ Counterpart of ``repro/models/backbone/ssm.py``:
 
 The JAX package runs the full-sequence recurrence with its jnp
 ``chunked_gla`` or, under ``cfg.use_pallas``, the Pallas GLA kernel — its
-TPU hot path (``_gla_dispatch``, ``ssm.py:207-213``). The port has one
-path: :func:`mamba2_block` and :func:`mamba2_prefill` call the GLA wrapper
-(:mod:`repro_torch.kernels.gla`: the CUDA kernels on the card, its plain
-chunked version on the CPU). :func:`mamba2_prefill` takes its decode
-state from that same call (``return_state=True``: the kernel writes the
+TPU hot path (``_gla_dispatch``, ``ssm.py:207-213``). The port chooses by
+mode, never on a failure: :func:`mamba2_prefill` (serving) calls the GLA
+wrapper (:mod:`repro_torch.kernels.gla`: the CUDA kernels on the card, its
+plain chunked version on the CPU), which has no backward;
+:func:`mamba2_block` (training) runs :func:`chunked_gla` and normalizes
+with ``rmsnorm_train``, the counterparts of the jnp functions the
+reference differentiates. :func:`mamba2_prefill` takes its decode
+state from the GLA call (``return_state=True``: the kernel writes the
 state it holds after the last chunk), where the JAX package runs a second
 jnp pass over k and v (``gla_final_state``); the two differ in rounding
 only. :func:`gla_final_state`, the counterpart of that pass, and
@@ -33,7 +36,48 @@ from repro_torch.models.backbone.layers import (
     normal,
     rmsnorm,
     rmsnorm_init,
+    rmsnorm_train,
 )
+
+
+def chunked_gla(q, k, v, log_a, chunk: int = 256) -> torch.Tensor:
+    """y_t = q_t · Σ_{s<=t} (Π_{r=s+1..t} e^{log_a_r}) k_s v_sᵀ, differentiable.
+
+    q, k: (B, S, H, dk); v: (B, S, H, dv); log_a: (B, S, H) (<= 0). Within a
+    chunk the decay matrix, across chunks the carried (B, H, dk, dv) state,
+    all in f32; returns (B, S, H, dv) in q's dtype. The train mode's GLA.
+    """
+    B, S, H, dk = q.shape
+    dv = v.shape[-1]
+    chunk = min(chunk, S)
+    pad = (-S) % chunk
+    if pad:
+        q, k, v = (F.pad(t, (0, 0, 0, 0, 0, pad)) for t in (q, k, v))
+        log_a = F.pad(log_a, (0, 0, 0, pad))
+    n = (S + pad) // chunk
+    qc = q.reshape(B, n, chunk, H, dk).float()
+    kc = k.reshape(B, n, chunk, H, dk).float()
+    vc = v.reshape(B, n, chunk, H, dv).float()
+    cum = torch.cumsum(log_a.reshape(B, n, chunk, H).float(), dim=2)  # L_t within a chunk
+    total = cum[:, :, -1]
+    # Within a chunk: D[t, s] = exp(L_t - L_s) for s <= t; masked before exp.
+    diff = cum[:, :, :, None, :] - cum[:, :, None, :, :]
+    tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool, device=q.device))
+    decay = torch.exp(torch.where(tri[None, None, :, :, None], diff, -torch.inf))
+    scores = torch.einsum("bnthd,bnshd->bntsh", qc, kc) * decay
+    y_intra = torch.einsum("bntsh,bnshv->bnthv", scores, vc)
+    # Across chunks: the state entering chunk i, S_{i+1} = e^{total_i} S_i + Σ_s ...
+    k_dec = kc * torch.exp(total[:, :, None] - cum)[..., None]
+    chunk_kv = torch.einsum("bnshd,bnshv->bnhdv", k_dec, vc)
+    state = torch.zeros((B, H, dk, dv), dtype=torch.float32, device=q.device)
+    entering = []
+    for i in range(n):
+        entering.append(state)
+        state = state * torch.exp(total[:, i])[..., None, None] + chunk_kv[:, i]
+    q_dec = qc * torch.exp(cum)[..., None]
+    y_inter = torch.einsum("bnthd,bnhdv->bnthv", q_dec, torch.stack(entering, dim=1))
+    y = (y_intra + y_inter).reshape(B, n * chunk, H, dv)
+    return y[:, :S].to(q.dtype)
 
 
 def gla_final_state(k, v, log_a, chunk: int = 256) -> torch.Tensor:
@@ -141,21 +185,22 @@ def _mamba2_qkva(params, cfg, x_conv, dt_raw, d_inner, N, H):
     return q, k, v, log_a, xh
 
 
-def _mamba2_out(params, cfg, y, xh, z, lead, d_inner):
+def _mamba2_out(params, cfg, y, xh, z, lead, d_inner, norm=rmsnorm):
     y = y + xh * params["D"][:, None].to(xh.dtype)
     y = y.reshape(*lead, d_inner)
-    y = rmsnorm(y * F.silu(z), params["out_norm"], cfg.norm_eps)
+    y = norm(y * F.silu(z), params["out_norm"], cfg.norm_eps)
     return y @ params["out_proj"]
 
 
 def mamba2_block(params, cfg, u):
-    """Full-sequence Mamba2. u: (B, S, D) -> (B, S, D)."""
+    """Full-sequence Mamba2, differentiable (the train mode). u: (B, S, D) ->
+    (B, S, D)."""
     check_port_supported(cfg)
     z, xBC, dt_raw, d_inner, N, H = _mamba2_split(params, cfg, u)
     x_conv, _ = _causal_conv(xBC, params["conv_w"], params["conv_b"])
     q, k, v, log_a, xh = _mamba2_qkva(params, cfg, x_conv, dt_raw, d_inner, N, H)
-    y = gla(q, k, v, log_a)
-    return _mamba2_out(params, cfg, y, xh, z, u.shape[:2], d_inner)
+    y = chunked_gla(q, k, v, log_a)
+    return _mamba2_out(params, cfg, y, xh, z, u.shape[:2], d_inner, norm=rmsnorm_train)
 
 
 def mamba2_init_cache(params, cfg, batch: int, dtype: torch.dtype):
@@ -168,7 +213,8 @@ def mamba2_init_cache(params, cfg, batch: int, dtype: torch.dtype):
 
 
 def mamba2_prefill(params, cfg, u):
-    """Like :func:`mamba2_block` but also returns the decode cache."""
+    """Full-sequence Mamba2 through the GLA kernel, also returning the decode
+    cache."""
     check_port_supported(cfg)
     z, xBC, dt_raw, d_inner, N, H = _mamba2_split(params, cfg, u)
     x_conv, conv_state = _causal_conv(xBC, params["conv_w"], params["conv_b"])

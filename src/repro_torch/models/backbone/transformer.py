@@ -16,12 +16,22 @@ Three entry modes share the block code:
   * :func:`forward`     — full-sequence logits (JAX mode ``"train"``);
   * :func:`prefill`     — full sequence, returns last-position logits + cache;
   * :func:`decode_step` — one token against the cache.
+
+The mode chooses the ops, never a failure. Prefill and decode serve
+through the kernels (flash attention, GLA, RMSNorm: CUDA on the card),
+which have no backward. Mode ``"train"`` is differentiable: it runs the
+counterparts of the jnp functions the JAX package trains through
+(``use_pallas`` is False by default there) — ``attention_block``
+(``full_attention`` / ``chunked_attention``), ``mamba2_block``
+(``chunked_gla``) and ``rmsnorm_train`` for every norm — and launches no
+backbone kernel.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, List, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.backbone.attention import (
     attention_block,
@@ -39,6 +49,7 @@ from repro_torch.models.backbone.layers import (
     mlp_init,
     rmsnorm,
     rmsnorm_init,
+    rmsnorm_train,
 )
 from repro_torch.models.backbone.ssm import (
     mamba2_block,
@@ -46,7 +57,7 @@ from repro_torch.models.backbone.ssm import (
     mamba2_init,
     mamba2_prefill,
 )
-from repro_torch.tree import tree_map
+from repro_torch.tree import tree_flatten, tree_map, tree_unflatten
 
 PyTree = Any
 
@@ -134,9 +145,10 @@ def param_count(params: PyTree) -> int:
 def _apply_block(p, shared, cfg, kind, x, positions, mode, cache):
     """Returns (x, new_cache)."""
     new_cache = cache
+    norm = rmsnorm_train if mode == "train" else rmsnorm
     if kind == "attn":
         attn_p = shared if shared is not None else p
-        h = rmsnorm(x, p["norm1"], cfg.norm_eps)
+        h = norm(x, p["norm1"], cfg.norm_eps)
         if mode == "train":
             y = attention_block(attn_p["attn"], cfg, h, positions)
         elif mode == "prefill":
@@ -149,12 +161,12 @@ def _apply_block(p, shared, cfg, kind, x, positions, mode, cache):
             new_cache = dict(cache) if cache is not None else {}
             new_cache["attn"] = new_attn_cache
         if "mlp" in attn_p:
-            h2 = rmsnorm(x, attn_p["norm2"], cfg.norm_eps)
+            h2 = norm(x, attn_p["norm2"], cfg.norm_eps)
             x = x + mlp(attn_p["mlp"], h2)
         return x, new_cache
     if kind != "mamba2":
         raise NotImplementedError(f"block kind {kind!r} is not ported yet")
-    h = rmsnorm(x, p["norm1"], cfg.norm_eps)
+    h = norm(x, p["norm1"], cfg.norm_eps)
     if mode == "train":
         return x + mamba2_block(p["mixer"], cfg, h), new_cache
     if mode == "prefill":
@@ -168,25 +180,44 @@ def _apply_block(p, shared, cfg, kind, x, positions, mode, cache):
 # Stack application: a loop over units + the tail
 # ---------------------------------------------------------------------------
 
-def _apply_stack(params, cfg, x, positions, mode, caches):
+def _unstack(tree: PyTree, n: int) -> List[PyTree]:
+    """A tree of (n, ...) leaves -> n trees of their slices. One ``unbind`` a
+    leaf, so the backward stacks each leaf's gradient once (indexing each
+    unit would write a full-size zero gradient a unit)."""
+    leaves, treedef = tree_flatten(tree)
+    parts = [leaf.unbind(0) for leaf in leaves]
+    return [tree_unflatten(treedef, [p[i] for p in parts]) for i in range(n)]
+
+
+def _apply_stack(params, cfg, x, positions, mode, caches, remat=False):
     """caches: {"units": {slotS: stacked cache}, "tail": {layerI: cache}} or None.
 
     Returns (x, new caches); the unit caches are stacked on a leading axis
-    again, as the JAX scan emits them.
+    again, as the JAX scan emits them. ``remat`` recomputes each unit in
+    the backward (``torch.utils.checkpoint``), as ``jax.checkpoint`` of the
+    unit does in the JAX package; the tail is applied without it, as there.
     """
     unit, n_units, tail = unit_structure(cfg)
     shared = params.get("shared_attn")
     unit_caches = (caches or {}).get("units")
-    outs = []
-    for i in range(n_units):
+    slot_params = {s: _unstack(params["units"][f"slot{s}"], n_units) for s in range(len(unit))}
+
+    def unit_fn(x, i):
         out_c = {}
         for s, kind in enumerate(unit):
-            p = tree_map(lambda a: a[i], params["units"][f"slot{s}"])
             c = tree_map(lambda a: a[i], unit_caches[f"slot{s}"]) if unit_caches else None
             sh = shared if (kind == "attn" and shared is not None) else None
-            x, nc = _apply_block(p, sh, cfg, kind, x, positions, mode, c)
+            x, nc = _apply_block(slot_params[s][i], sh, cfg, kind, x, positions, mode, c)
             if nc is not None:
                 out_c[f"slot{s}"] = nc
+        return x, out_c
+
+    outs = []
+    for i in range(n_units):
+        if remat:
+            x, out_c = checkpoint(unit_fn, x, i, use_reentrant=False)
+        else:
+            x, out_c = unit_fn(x, i)
         outs.append(out_c)
     new_caches: Dict[str, Any] = {"units": {}, "tail": {}}
     if mode != "train":
@@ -221,12 +252,13 @@ def _logits(params, cfg, h):
 # Entry points
 # ---------------------------------------------------------------------------
 
-def forward(params, cfg: ArchConfig, batch):
-    """Full-sequence logits. Returns (logits (B, S, V), aux_loss 0, h_final)."""
+def forward(params, cfg: ArchConfig, batch, remat: bool = True):
+    """Full-sequence logits, differentiable (mode ``"train"``: no backbone
+    kernel). Returns (logits (B, S, V), aux_loss 0, h_final)."""
     _check_arch(cfg)
     x, positions = _embed_inputs(params, cfg, batch)
-    x, _ = _apply_stack(params, cfg, x, positions, "train", None)
-    h = rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    x, _ = _apply_stack(params, cfg, x, positions, "train", None, remat=remat)
+    h = rmsnorm_train(x, params["final_norm"], cfg.norm_eps)
     return _logits(params, cfg, h), torch.zeros((), device=h.device), h
 
 

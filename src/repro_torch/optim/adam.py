@@ -3,9 +3,16 @@
 State layout equals ``repro.optim.adam``: ``adam`` is
 ``chain(scale_by_adam, scale)``, so its state is the tuple
 ``(ScaleByAdamState(count, mu, nu), ())`` with an int32 ``count``.
+
+The first moment keeps the parameter's dtype and rounds as JAX rounds it:
+a Python constant takes the moment's dtype (JAX's weak typing: b1 = 0.9 is
+0.8984375 in bfloat16), and the bias-corrected moment is divided in f32
+(JAX promotes bfloat16 / float32 to float32, where torch would keep the
+tensor's bfloat16). In float32 both are no-ops.
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional
 
 import torch
@@ -34,15 +41,23 @@ def scale_by_adam(
                             device=leaves[0].device if leaves else None)
         return ScaleByAdamState(count=count, mu=mu, nu=nu)
 
+    @functools.lru_cache(maxsize=None)
+    def weak(c, dtype):
+        """``c`` rounded to ``dtype``, as a Python float: the same product as
+        a 0-d tensor of that dtype, with no host-to-device copy."""
+        return float(torch.tensor(c, dtype=dtype))
+
     def update(grads, state, params=None):
         del params
         count = state.count + 1
-        mu = tree_map(lambda m, g: b1 * m + (1.0 - b1) * g.to(m.dtype), state.mu, grads)
+        mu = tree_map(
+            lambda m, g: weak(b1, m.dtype) * m + weak(1.0 - b1, m.dtype) * g.to(m.dtype),
+            state.mu, grads)
         nu = tree_map(
             lambda v, g: b2 * v + (1.0 - b2) * torch.square(g.float()), state.nu, grads)
         bc1 = 1.0 - b1 ** count.float()
         bc2 = 1.0 - b2 ** count.float()
-        updates = tree_map(lambda m, v: (m / bc1) / (torch.sqrt(v / bc2) + eps), mu, nu)
+        updates = tree_map(lambda m, v: (m.float() / bc1) / (torch.sqrt(v / bc2) + eps), mu, nu)
         return updates, ScaleByAdamState(count=count, mu=mu, nu=nu)
 
     return GradientTransformation(init, update)
