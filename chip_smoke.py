@@ -48,7 +48,8 @@ non-zero):
      launch counters show which ran) at zamba2's (B, S, H/KV, hd) = (8, 64, 32/32, 112) and
      (4, 4,096, 32/32, 112), qwen3's (8, 512, 32/8, 128), the GQA groups
      of 3 and 8 (llama3.2-3b's (8, 64, 24/8, 128), qwen3-32b's (8, 512,
-     64/8, 128)), a decode shape
+     64/8, 128)), olmoe-1b-7b's (8, 512, 16/16, 128) and qwen2-vl-2b's
+     group of 6 (8, 512, 12/2, 128), a decode shape
      (Sq = 1, q_offset), window 128, non-causal and S = 1,000, and in bf16
      at hd 64, 80, 100, 256, as strided views of a packed tensor (aligned
      and one element off), and with q tiles or rows without a live key;
@@ -60,8 +61,8 @@ non-zero):
      kernel; both routes' final state within 1e-4 / 1e-5 relative
      Frobenius of the plain state; its shared-memory plan against the
      wrapper's); RMSNorm at D = 3,584,
-     7,168, 2,560, 3,072, 4,096, 5,120 and 128 (every width of the serve
-     cells) with ragged row counts and rows at scales 2^-4
+     7,168, 2,560, 3,072, 4,096, 5,120, 2,048, 1,536 and 128 (every width
+     of the serve cells) with ragged row counts and rows at scales 2^-4
      to 2^4, on 16-byte vectors and, with x one element off 16 bytes, on
      the scalar route, each bf16 output also element by element within
      one bf16 step of the plain value, and on plans where a few blocks
@@ -69,8 +70,12 @@ non-zero):
      (``RMS_WALKS``, 20 launches each). Flash attention, GLA and RMSNorm
      each refuse a card input that requires grad while grad mode is on
      (the kernels have no backward), before any launch. And the backbone
-     on the card against the backbone on the CPU in f32: zamba2-7b at full width
-     with one hybrid unit (6 layers), B = 2, prompt 32, greedy gen 4;
+     on the card against the backbone on the CPU in f32 at full width, B =
+     2, prompt 32, greedy gen 4: zamba2-7b with one hybrid unit (6
+     layers), olmoe-1b-7b with one MoE layer (the routing compared call by
+     call: flipped (token, slot) pairs counted, the smallest top-k margin
+     printed, the CPU's experts handed to the card's block where any
+     flipped) and qwen2-vl-2b with 2 layers behind its 256 vision tokens;
   3. the main paths at full width, each through ``Server(wire="fused")``
      with the kernels' launch counters set to 0 just before each run and
      read just after, and the bytes per round checked:
@@ -180,10 +185,17 @@ non-zero):
      zamba2-7b at 12 layers (batch 4, prompt 4,096, gen 8), qwen3-4b at 4
      layers (batch 8, prompt 512, gen 16), llama3.2-3b at full depth (28
      layers; batch 8, prompt 64, gen 16), qwen3-8b at full depth (36
-     layers; batch 8, prompt 512, gen 16) and qwen3-32b at 16 of its 64
-     layers (batch 8, prompt 512, gen 16), the dense cells' parameter
-     counts asserted; the first RMSNorm launch at each of a run's shapes
-     held to its plain version as in phase 2; prefill and decode times,
+     layers; batch 8, prompt 512, gen 16), qwen3-32b at 16 of its 64
+     layers (batch 8, prompt 512, gen 16), olmoe-1b-7b at full depth (16
+     layers, 64 experts top 8) and phi3.5-moe at 8 of its 32 layers (16
+     experts top 2), each batch 8, prompt 512, gen 16 (the capacity route
+     once a layer in the prefill, every expert in decode, counted), and
+     qwen2-vl-2b at full depth (28 layers; 256 stub vision tokens + a
+     256-token prompt, gen 16), the parameter counts asserted (zamba2's and
+     qwen3-4b's aside); the first RMSNorm and the first flash launch at
+     each of a run's shapes held to its plain version as in phase 2; for
+     the MoE cells one more prefill with CUDA events around each MoE block
+     (their share of the prefill's device span); prefill and decode times,
      peak memory, then one more
      prefill and two more decode steps under ``torch.profiler``. Then
      phase 3f, the backbone's train path (``repro_torch.launch.train``'s
@@ -195,14 +207,19 @@ non-zero):
      full width with one layer in f32 (B = 4, S = 16, J = 2, injected ε
      and tokens) on the card and on the CPU (loss within 1e-4 relative,
      every θ, η_G and η_L leaf within 1e-3 relative Frobenius), and one
-     SFVI step in bf16 (1e-3 and 1e-2); then
+     SFVI step in bf16 (1e-3 and 1e-2); one SFVI step of olmoe-1b-7b
+     (one MoE layer, its routing compared as in phase 2) and of qwen2-vl-2b
+     (2 layers, its vision prefix) in f32 as qwen3-4b's; then
      qwen3-4b at 36 layers, SFVI 3 steps (35,330,945,056 B a round) and
      SFVI-Avg with ``avg_every`` 2, 4 steps (17,665,472,528 B), and
      zamba2-7b at 12 layers, SFVI 3 steps (9,726,671,392 B), and
      qwen3-4b at 36 layers at a long sequence: J = 2, batch 2, sequence
      4,096, ``remat=True``, SFVI 3 steps (17,665,472,528 B; 72
      ``chunked_attention`` calls and 36 ``checkpoint`` calls a step, none
-     in the other cells): s/step, peak
+     in the other cells), olmoe-1b-7b at 8 of 16 layers, SFVI 3 steps
+     (28,522,381,344 B; ``aux_moe`` printed each step), and qwen2-vl-2b
+     at 28 layers with the vision prefix, SFVI 3 steps (12,407,418,912 B):
+     s/step, peak
      memory (under 80 GB), launches a step (2 reparam forwards and 2
      backwards, 2 combines on a barycenter step, no flash, GLA or
      RMSNorm), the loss each step, two more steps under ``torch.profiler``,
@@ -230,7 +247,7 @@ non-zero):
      library call; the reparam kernels also at the train path's sizes
      (N = 1,235,969, 1,843,712 and 4,943,876) and the combine at its
      SFVI-Avg rows (4, 1,235,969); flash also at the GQA 3 and 8 shapes,
-     every flash row with a run column; the square root at the
+     olmoe's 16/16 and qwen2-vl's 12/2, every flash row with a run column; the square root at the
      path's shapes and the wrapper's limit d against the 40 step calls it
      replaced (device and host wall time), and the step route one past the
      limit and at d = 64.
@@ -851,6 +868,9 @@ FLASH_CHECKS = [
     ("qwen3_prefill_512", 8, 512, 512, 32, 8, 128, True, None, 0, True),
     ("llama_gqa3_prefill_64", 8, 64, 64, 24, 8, 128, True, None, 0, True),
     ("qwen3_32b_gqa8_prefill_512", 8, 512, 512, 64, 8, 128, True, None, 0, True),
+    ("olmoe_prefill_512", 8, 512, 512, 16, 16, 128, True, None, 0, True),
+    # qwen2-vl-2b: GQA groups of 6, over 256 vision + 256 text tokens
+    ("qwen2_vl_gqa6_prefill_512", 8, 512, 512, 12, 2, 128, True, None, 0, True),
     ("decode_q_offset", 8, 1, 4104, 32, 8, 128, True, None, 4103, False),
     ("window_128", 2, 1000, 1000, 32, 8, 128, True, 128, 0, False),
     ("non_causal", 2, 256, 384, 32, 8, 128, False, None, 0, False),
@@ -873,6 +893,9 @@ RMS_CHECKS = [
     ("qwen3_8b_d_model", 8 * 512 + 3, 4096),
     ("qwen3_32b_d_model", 8 * 512 + 3, 5120),
     ("qwen3_32b_q_norm", 8 * 512 * 64 + 5, 128),
+    ("olmoe_d_model", 8 * 512 + 3, 2048),
+    ("olmoe_q_norm", 8 * 512 * 16 + 5, 128),
+    ("qwen2_vl_d_model", 8 * 512 + 3, 1536),
 ]
 
 
@@ -1351,14 +1374,16 @@ def check_grad_guard(torch, attention, gla, rmsnorm, gen):
               flush=True)
 
 
-def greedy(torch, cfg, theta, eta_G, eta_L, tokens, silos, gen_len):
-    """Serve prefill + greedy decode; returns (every step's logits, tokens)."""
+def greedy(torch, cfg, theta, eta_G, eta_L, batch, silos, gen_len):
+    """Serve prefill + greedy decode of ``batch`` (tokens, and the vision
+    prefix where the config has one); returns (every step's logits, tokens)."""
     from repro_torch.launch import steps as S
 
-    prefill = S.make_serve_prefill(cfg, silos, max_len=tokens.shape[1] + gen_len)
+    max_len = batch["tokens"].shape[1] + gen_len + cfg.num_vision_tokens
+    prefill = S.make_serve_prefill(cfg, silos, max_len=max_len)
     decode = S.make_serve_decode(cfg, silos)
     with torch.inference_mode():
-        logits, cache = prefill(theta, eta_G, eta_L, {"tokens": tokens})
+        logits, cache = prefill(theta, eta_G, eta_L, batch)
         out_logits, out_tok = [logits.float().cpu()], [torch.argmax(logits[:, -1], -1)]
         for _ in range(gen_len - 1):
             logits, cache = decode(theta, eta_G, eta_L, out_tok[-1][:, None], cache)
@@ -1367,49 +1392,124 @@ def greedy(torch, cfg, theta, eta_G, eta_L, tokens, silos, gen_len):
     return out_logits, torch.stack([t.cpu() for t in out_tok], 1)
 
 
+class RouteLog:
+    """The MoE blocks' routing (``moe._route``) on the CPU and on the card.
+    Under ``record`` each call's experts are kept; under ``match`` each card
+    call's experts are compared with the CPU's at the same call: the
+    (token, slot) pairs that differ are counted, the smallest top-k margin
+    on the card (the k-th minus the (k+1)-th router probability) kept, and
+    where any pair differs the card's block is handed the CPU's experts
+    (``_route(expert_idx=)``), so that its output is held on the same
+    routing. A tolerance is never widened for a flip."""
+
+    def __init__(self, torch):
+        from repro_torch.models.backbone import moe
+
+        self.torch, self.moe, self.real = torch, moe, moe._route
+        self.kept, self.mode, self.i = [], None, 0
+        self.flips, self.injected, self.margin = 0, 0, math.inf
+
+    def __call__(self, mode):
+        self.mode, self.i = mode, 0
+        return self
+
+    def __enter__(self):
+        def route(router_w, x, E, k, expert_idx=None):
+            assert expert_idx is None
+            out = self.real(router_w, x, E, k)
+            if self.mode == "record":
+                self.kept.append(out[2].cpu())
+                return out
+            want = self.kept[self.i].to(x.device)
+            self.i += 1
+            top = self.torch.topk(out[0], k + 1, dim=-1).values
+            self.margin = min(self.margin, float((top[..., k - 1] - top[..., k]).min().detach()))
+            flips = int((out[2] != want).sum())
+            self.flips += flips
+            if not flips:
+                return out
+            self.injected += 1
+            return self.real(router_w, x, E, k, expert_idx=want)
+
+        self.moe._route = route
+        return self
+
+    def __exit__(self, *exc):
+        self.moe._route = self.real
+        if self.mode == "match" and exc[0] is None:
+            assert self.i == len(self.kept), (self.i, len(self.kept))
+
+    def line(self) -> str:
+        return (f"routing: {len(self.kept)} MoE calls, {self.flips} (token, slot) pairs flipped"
+                f" ({self.injected} calls given the CPU's experts), smallest top-k margin "
+                f"{self.margin:.3e}")
+
+
+# The backbone on the card against the CPU (f32, full width): (arch, layers,
+# batch, prompt, greedy tokens). zamba2-7b: one hybrid unit (5 mamba2 + the
+# shared attention); olmoe-1b-7b: one MoE layer (64 experts, top 8, the
+# capacity route in prefill, every expert in decode); qwen2-vl-2b: two
+# layers behind its 256-token vision prefix (M-RoPE, GQA 12/2).
+BACKBONE_PARITY = [("zamba2-7b", 6, 2, 32, 4), ("olmoe-1b-7b", 1, 2, 32, 4),
+                   ("qwen2-vl-2b", 2, 2, 32, 4)]
+
+
 def check_backbone_cuda_vs_cpu(torch):
-    """zamba2-7b at full width, one hybrid unit (6 layers: 5 mamba2 + the
-    shared attention), f32, B = 2, prompt 32, greedy gen 4: the same
-    weights (drawn on the CPU) through the port on the card (kernels) and
-    on the CPU (plain versions). Logits within 1e-3 relative (max abs error
-    over max |logit|), and the same tokens."""
+    """Each ``BACKBONE_PARITY`` cell at full width in f32: the same weights
+    (drawn on the CPU) through the port on the card (kernels) and on the
+    CPU (plain versions). Logits within 1e-3 relative (max abs error over
+    max |logit|), and the same tokens; an MoE cell's routing compared call
+    by call (:class:`RouteLog`)."""
     from repro_torch.configs import get_config
+    from repro_torch.kernels import attention, gla
     from repro_torch.launch import steps as S
     from repro_torch.models.backbone import transformer as T
     from repro_torch.tree import tree_map
 
-    cfg = dataclasses.replace(get_config("zamba2-7b"), num_layers=6, dtype="float32")
-    g = torch.Generator().manual_seed(3)
-    theta = T.init_params(g, cfg)
-    eta_G, eta_L = S.init_eta_G(g, cfg), S.init_eta_L(g, cfg, 2)
-    tokens = torch.randint(0, cfg.vocab_size, (2, 32), generator=g)
-    t0 = time.perf_counter()
-    cpu_logits, cpu_tok = greedy(torch, cfg, theta, eta_G, eta_L, tokens, 2, 4)
-    cpu_s = time.perf_counter() - t0
-    to_dev = lambda tree: tree_map(lambda a: a.to(DEVICE), tree)  # noqa: E731
-    from repro_torch.kernels import attention, gla
-
-    attention.reset_launches()
-    gla.reset_launches()
-    dev_logits, dev_tok = greedy(torch, cfg, to_dev(theta), to_dev(eta_G), to_dev(eta_L),
-                                 tokens.to(DEVICE), 2, 4)
-    sync(torch)
-    # f32 attention takes the SIMT kernel (the f32 parity route), once a prefill.
-    want = backbone_launches_per_pass(cfg)[0]
-    assert attention.LAUNCHES == {k: want[k] for k in attention.LAUNCHES}, attention.LAUNCHES
-    assert attention.LAUNCHES["flash_attention"] > 0
-    # f32 GLA takes the SIMT kernel, once a mamba2 layer in the prefill.
-    assert gla.LAUNCHES == {k: want[k] for k in gla.LAUNCHES}, gla.LAUNCHES
-    assert gla.LAUNCHES["gla"] > 0
-    rel = max(float((a - b).abs().max() / b.abs().max())
-              for a, b in zip(dev_logits, cpu_logits, strict=True))
-    same = bool(torch.equal(dev_tok, cpu_tok))
-    print(f"  backbone {DEVICE} vs cpu [zamba2-7b, 6 layers, f32, B=2, prompt 32, greedy 4]: "
-          f"logits max_rel={rel:.2e} (<= 1e-3), tokens equal={same} {dev_tok[0].tolist()} "
-          f"(cpu side {cpu_s:.1f} s)", flush=True)
-    assert all(bool(torch.isfinite(a).all()) for a in dev_logits)
-    assert rel <= 1e-3 and same
-    return {"max_rel": rel, "tokens_equal": same}
+    out = {}
+    for arch, layers, B, prompt, gen_len in BACKBONE_PARITY:
+        cfg = dataclasses.replace(get_config(arch), num_layers=layers, dtype="float32")
+        g = torch.Generator().manual_seed(3)
+        theta = T.init_params(g, cfg)
+        eta_G, eta_L = S.init_eta_G(g, cfg), S.init_eta_L(g, cfg, 2)
+        batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, prompt), generator=g)}
+        if cfg.num_vision_tokens:
+            batch["vision"] = torch.randn((B, cfg.num_vision_tokens, cfg.d_model), generator=g)
+        routes = RouteLog(torch)
+        t0 = time.perf_counter()
+        with routes("record"):
+            cpu_logits, cpu_tok = greedy(torch, cfg, theta, eta_G, eta_L, batch, 2, gen_len)
+        cpu_s = time.perf_counter() - t0
+        to_dev = lambda tree: tree_map(lambda a: a.to(DEVICE), tree)  # noqa: E731
+        attention.reset_launches()
+        gla.reset_launches()
+        with routes("match"):
+            dev_logits, dev_tok = greedy(torch, cfg, to_dev(theta), to_dev(eta_G), to_dev(eta_L),
+                                         to_dev(batch), 2, gen_len)
+        sync(torch)
+        # f32 attention and GLA take the SIMT kernels, once a layer in the prefill.
+        want = backbone_launches_per_pass(cfg)[0]
+        assert attention.LAUNCHES == {k: want[k] for k in attention.LAUNCHES}, attention.LAUNCHES
+        assert attention.LAUNCHES["flash_attention"] > 0
+        assert gla.LAUNCHES == {k: want[k] for k in gla.LAUNCHES}, gla.LAUNCHES
+        assert (gla.LAUNCHES["gla"] > 0) == ("mamba2" in cfg.block_pattern)
+        assert bool(routes.kept) == cfg.is_moe
+        rel = max(float((a - b).abs().max() / b.abs().max())
+                  for a, b in zip(dev_logits, cpu_logits, strict=True))
+        same = bool(torch.equal(dev_tok, cpu_tok))
+        route = routes.line() if cfg.is_moe else "no MoE"
+        print(f"  backbone {DEVICE} vs cpu [{arch}, {layers} layers, f32, B={B}, prompt {prompt}"
+              f"{' + %d vision' % cfg.num_vision_tokens if cfg.num_vision_tokens else ''}, "
+              f"greedy {gen_len}]: logits max_rel={rel:.2e} (<= 1e-3), tokens equal={same} "
+              f"{dev_tok[0].tolist()}; {route} (cpu side {cpu_s:.1f} s)", flush=True)
+        assert all(bool(torch.isfinite(a).all()) for a in dev_logits)
+        assert rel <= 1e-3 and same, arch
+        out[arch] = {"max_rel": rel, "tokens_equal": same}
+        if cfg.is_moe:
+            out[arch].update(route_calls=len(routes.kept), flipped_pairs=routes.flips,
+                             injected_calls=routes.injected, min_topk_margin=routes.margin)
+        del theta, eta_G, eta_L, batch
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2878,10 +2978,20 @@ SERVE_RUNS = [
     ("llama3.2-3b 28 layers", "llama3.2-3b", 28, 8, 64, 16, 4),
     ("qwen3-8b 36 layers", "qwen3-8b", 36, 8, 512, 16, 4),
     ("qwen3-32b 16 of 64 layers", "qwen3-32b", 16, 8, 512, 16, 4),
+    # MoE: the prefill's 4 groups of 1,024 tokens at capacity 160 (64
+    # experts top 8, or 16 top 2), drops taken; decode runs every expert
+    # on its 8 tokens. phi3.5-moe is 83.7 GB in bf16 whole, and
+    # init_params holds the layers twice: 8 of its 32 layers.
+    ("olmoe-1b-7b 16 layers", "olmoe-1b-7b", 16, 8, 512, 16, 4),
+    ("phi3.5-moe 8 of 32 layers", "phi3.5-moe-42b-a6.6b", 8, 8, 512, 16, 4),
+    # 256 stub vision tokens ahead of each 256-token prompt (M-RoPE, GQA 12/2).
+    ("qwen2-vl-2b 28 layers", "qwen2-vl-2b", 28, 8, 256, 16, 4),
 ]
-# Parameters of the dense cells (the JAX package's init_params on each config).
+# Parameters of the cells at these depths (the JAX package's init_params on
+# each config; tests/test_torch_train.py pins them to jax.eval_shape).
 SERVE_PARAMS = {"llama3.2-3b": 3_212_749_824, "qwen3-8b": 8_190_735_360,
-                "qwen3-32b": 9_357_403_136}
+                "qwen3-32b": 9_357_403_136, "olmoe-1b-7b": 6_919_100_416,
+                "phi3.5-moe-42b-a6.6b": 10_665_136_128, "qwen2-vl-2b": 1_546_016_256}
 BACKBONE_COUNTS = ("flash_attention", "flash_attention_tc", "gla", "gla_tc", "rmsnorm")
 
 
@@ -2930,46 +3040,99 @@ def profile_serve(torch, run, steps=2) -> dict:
     return out
 
 
+def moe_share(torch, run) -> dict:
+    """One more prefill of a finished MoE serve run with a CUDA event pair
+    around each MoE block and around the whole prefill: the blocks' summed
+    device spans (their idle gaps included) and their share of the
+    prefill's span."""
+    from repro_torch.models.backbone import transformer
+
+    st, pairs, real = run.state, [], transformer.moe_block
+    event = lambda: torch.cuda.Event(enable_timing=True)  # noqa: E731
+
+    def timed(*a, **kw):
+        pairs.append((event(), event()))
+        pairs[-1][0].record()
+        out = real(*a, **kw)
+        pairs[-1][1].record()
+        return out
+
+    start, end = event(), event()
+    transformer.moe_block = timed
+    try:
+        with torch.inference_mode():
+            sync(torch)
+            start.record()
+            st["prefill"](st["theta"], st["eta_G"], st["eta_L"], st["prompt"])
+            end.record()
+            end.synchronize()
+    finally:
+        transformer.moe_block = real
+    moe_ms = sum(a.elapsed_time(b) for a, b in pairs)
+    span = start.elapsed_time(end)
+    return {"blocks": len(pairs), "moe_ms": moe_ms, "prefill_span_ms": span,
+            "moe_share": moe_ms / span}
+
+
 class FirstLaunches:
-    """While the block runs, the first call on the card of the RMSNorm
-    wrapper at each (rows, D, x dtype, w dtype) keeps its inputs and output,
-    wherever the backbone's modules bound the wrapper: a module's name, or
-    a function's default argument (qk-norm's and mamba2's ``norm=``).
-    :meth:`hold` holds each against the plain version with phase 2's limits
-    (max-abs, and element by element in bf16), and checks that every launch
-    of the run went through the recorder. Later calls at a kept shape are
-    not copied; every call still counts its launch."""
+    """While the block runs, the first call on the card of the RMSNorm and
+    the flash-attention wrappers at each shape (RMSNorm: rows, D, x dtype,
+    w dtype; flash: q and k shapes, dtype, mask) keeps its inputs and
+    output, wherever the backbone's modules bound the wrapper: a module's
+    name, or a function's default argument (qk-norm's and mamba2's
+    ``norm=``). :meth:`hold` holds each against the plain version with
+    phase 2's limits (max-abs, and element by element in bf16), and checks
+    that every launch of the run went through the recorder. Later calls at
+    a kept shape are not copied; every call still counts its launch."""
 
     def __init__(self, torch):
-        from repro_torch.kernels import rmsnorm
+        from repro_torch.kernels import attention, rmsnorm
 
-        self.torch, self.orig, self.kept, self.calls = torch, rmsnorm.rmsnorm, {}, 0
+        self.torch = torch
+        self.origs = {"rmsnorm": rmsnorm.rmsnorm, "flash_attention": attention.flash_attention}
+        self.kept = {name: {} for name in self.origs}
+        self.calls = {name: 0 for name in self.origs}
         self.patched = []  # (object, attribute, original value)
 
-    def __enter__(self):
-        orig, kept = self.orig, self.kept
+    def _recorder(self, name):
+        orig, kept = self.origs[name], self.kept[name]
 
-        def recorded(x, weight, eps=1e-6):
+        def rmsnorm(x, weight, eps=1e-6):
             out = orig(x, weight, eps)
             if x.is_cuda and x.numel():
-                self.calls += 1
+                self.calls[name] += 1
                 key = (x.numel() // x.shape[-1], x.shape[-1], x.dtype, weight.dtype)
                 if key not in kept:
-                    kept[key] = (x.clone(), weight.clone(), eps, out.clone())
+                    kept[key] = ((x.clone(), weight.clone()), {"eps": eps}, out.clone())
             return out
 
-        for name, m in sorted(sys.modules.items()):
-            if not name.startswith("repro_torch.models."):
+        def flash_attention(q, k, v, causal=True, window=None, q_offset=0, **kw):
+            out = orig(q, k, v, causal, window, q_offset, **kw)
+            if q.is_cuda:
+                self.calls[name] += 1
+                key = (tuple(q.shape), tuple(k.shape), q.dtype, causal, window, q_offset)
+                if key not in kept:
+                    kept[key] = ((q.clone(), k.clone(), v.clone()),
+                                 {"causal": causal, "window": window, "q_offset": q_offset},
+                                 out.clone())
+            return out
+
+        return {"rmsnorm": rmsnorm, "flash_attention": flash_attention}[name]
+
+    def __enter__(self):
+        wrapped = {id(orig): self._recorder(name) for name, orig in self.origs.items()}
+        for mod_name, m in sorted(sys.modules.items()):
+            if not mod_name.startswith("repro_torch.models."):
                 continue
             for attr, v in list(vars(m).items()):
-                if v is orig:
+                if id(v) in wrapped:
                     self.patched.append((m, attr, v))
                 elif isinstance(v, types.FunctionType) and any(
-                        d is orig for d in v.__defaults__ or ()):
+                        id(d) in wrapped for d in v.__defaults__ or ()):
                     self.patched.append((v, "__defaults__", v.__defaults__))
         for obj, attr, v in self.patched:
-            setattr(obj, attr, recorded if attr != "__defaults__"
-                    else tuple(recorded if d is orig else d for d in v))
+            setattr(obj, attr, wrapped[id(v)] if attr != "__defaults__"
+                    else tuple(wrapped.get(id(d), d) for d in v))
         return self
 
     def __exit__(self, *exc):
@@ -2977,24 +3140,30 @@ class FirstLaunches:
             setattr(obj, attr, v)
 
     def hold(self, ref, label, launches) -> int:
-        """Each kept launch against ``ref.rmsnorm_plain``; prints one line a
-        shape, asserts that the recorder saw all ``launches`` of the run, and
-        returns the number of shapes."""
-        assert self.calls == launches and self.kept, (label, self.calls, launches)
-        for (rows, D, xd, wd), (x, w, eps, got) in sorted(self.kept.items(), key=str):
-            want = ref.rmsnorm_plain(x, w, eps)
-            err = float((got.float() - want.float()).abs().max())
-            ok, line = _check_line("rmsnorm", err, want)
-            if xd == self.torch.bfloat16:
-                ratio = rms_bf16_ratio(self.torch, got, want)
-                line += f", elementwise {ratio:.3f} of 2^-7 |want| (<= 1)"
-                ok = ok and ratio <= 1.0
-            print(f"  phase 3b {label}: first rmsnorm launch at ({rows},{D}) x "
-                  f"{str(xd)[6:]} w {str(wd)[6:]} held to its plain version: {line}",
-                  flush=True)
-            assert ok, (label, rows, D, xd, wd)
-        n = len(self.kept)
-        self.kept.clear()
+        """Each kept launch against its plain version (``ref.rmsnorm_plain``,
+        ``ref.flash_attention_plain``); prints one line a shape, asserts that
+        the recorder saw all ``launches`` of the run (by wrapper name), and
+        returns the number of shapes held."""
+        plains = {"rmsnorm": ref.rmsnorm_plain, "flash_attention": ref.flash_attention_plain}
+        ratios = {"rmsnorm": rms_bf16_ratio, "flash_attention": flash_bf16_ratio}
+        n = 0
+        for name, kept in self.kept.items():
+            assert self.calls[name] == launches[name], (label, name, self.calls, launches)
+            assert bool(kept) == (launches[name] > 0), (label, name)
+            for key, (args, kw, got) in sorted(kept.items(), key=str):
+                want = plains[name](*args, **kw)
+                err = float((got.float() - want.float()).abs().max())
+                ok, line = _check_line(name, err, want)
+                if got.dtype == self.torch.bfloat16:
+                    ratio = ratios[name](self.torch, got, want)
+                    line += f", elementwise {ratio:.3f} of its limit (<= 1)"
+                    ok = ok and ratio <= 1.0
+                shape = " x ".join("(" + ",".join(map(str, a.shape)) + ")" for a in args)
+                print(f"  phase 3b {label}: first {name} launch at {shape} "
+                      f"{str(got.dtype)[6:]} {kw} held to its plain version: {line}", flush=True)
+                assert ok, (label, name, key)
+            n += len(kept)
+            kept.clear()
         return n
 
 
@@ -3003,8 +3172,8 @@ def serve_runs(torch, kernel_modules, other_modules):
     just after; asserts the launches each kernel owes the run, finite
     logits, that no other kernel launched, and that no prefill called
     ``gla_final_state`` (mamba2's decode state comes from the GLA kernel).
-    The first RMSNorm launch at each shape of each run is held to its plain
-    version (:class:`FirstLaunches`)."""
+    The first RMSNorm and flash launch at each shape of each run is held to
+    its plain version (:class:`FirstLaunches`)."""
     from repro_torch.models.backbone import ssm
 
     final_state_calls = []
@@ -3025,6 +3194,7 @@ def _serve_runs(torch, kernel_modules, other_modules, final_state_calls):
     from repro_torch.configs import get_config
     from repro_torch.kernels import ref
     from repro_torch.launch.serve_backbone import serve
+    from repro_torch.models.backbone import transformer
 
     totals = {k: 0 for k in BACKBONE_COUNTS}
     results = []
@@ -3036,7 +3206,10 @@ def _serve_runs(torch, kernel_modules, other_modules, final_state_calls):
         for m in kernel_modules + other_modules:
             m.reset_launches()
         final_state_calls.clear()
-        with FirstLaunches(torch) as first:
+        moe_calls = {"moe_block": [], "moe_block_dense": []}
+        with FirstLaunches(torch) as first, \
+                Patched(transformer, "moe_block", moe_calls["moe_block"]), \
+                Patched(transformer, "moe_block_dense", moe_calls["moe_block_dense"]):
             run = serve(cfg, batch=B, prompt_len=prompt, gen=gen_len, silos=silos,
                         device=torch.device(DEVICE))
             sync(torch)
@@ -3047,29 +3220,43 @@ def _serve_runs(torch, kernel_modules, other_modules, final_state_calls):
         want = {k: per_prefill[k] + (gen_len - 1) * per_decode[k] for k in BACKBONE_COUNTS}
         from repro_torch.models.backbone.transformer import param_count
 
+        nv = cfg.num_vision_tokens
         res = {
             "serve": label, "arch": arch, "layers": layers, "batch": B, "prompt": prompt,
-            "gen": gen_len, "silos": silos, "params": param_count(run.state["theta"]),
-            "prefill_ms": run.prefill_s * 1e3, "prefill_tok_s": B * prompt / run.prefill_s,
+            "vision_tokens": nv, "gen": gen_len, "silos": silos,
+            "params": param_count(run.state["theta"]),
+            "prefill_ms": run.prefill_s * 1e3, "prefill_tok_s": B * (nv + prompt) / run.prefill_s,
             "decode_ms_per_token": run.decode_s * 1e3 / (gen_len - 1),
             "decode_tok_s": B * (gen_len - 1) / run.decode_s,
             "peak_gb": peak / 1e9, "launches": counts,
+            "moe_calls": {k: len(v) for k, v in moe_calls.items()},
             "tokens_first_request": run.tokens[0].tolist(),
         }
         print(f"  {label}: prefill {res['prefill_ms']:.1f} ms ({res['prefill_tok_s']:.0f} tok/s), "
               f"decode {res['decode_ms_per_token']:.2f} ms/token ({res['decode_tok_s']:.0f} tok/s), "
               f"peak {res['peak_gb']:.2f} GB, params {res['params']:,}, launches={counts}, "
-              f"gla_final_state calls={len(final_state_calls)}", flush=True)
+              f"gla_final_state calls={len(final_state_calls)}, MoE calls={res['moe_calls']}",
+              flush=True)
         assert bool(torch.isfinite(run.logits.float()).all()), label
         assert tuple(run.tokens.shape) == (B, gen_len), label
         assert res["params"] == SERVE_PARAMS.get(arch, res["params"]), (label, res["params"])
         assert counts == want, (label, counts, want)
         assert not any(others.values()), (label, others)
         assert not final_state_calls, (label, "gla_final_state called", len(final_state_calls))
+        # The capacity route once a layer in the prefill, every expert in each decode step.
+        n_moe = layers if cfg.is_moe else 0
+        assert res["moe_calls"] == {"moe_block": n_moe, "moe_block_dense": n_moe * (gen_len - 1)}, \
+            (label, res["moe_calls"])
         for k in totals:
             totals[k] += counts[k]
-        res["rmsnorm_shapes_held"] = first.hold(ref, label, counts["rmsnorm"])
+        res["shapes_held"] = first.hold(ref, label, {
+            "rmsnorm": counts["rmsnorm"], "flash_attention": counts["flash_attention_tc"]})
         res["profile"] = profile_serve(torch, run)
+        if cfg.is_moe:
+            res["moe_prefill"] = moe_share(torch, run)
+            print(f"  {label}: MoE blocks {res['moe_prefill']['moe_ms']:.2f} ms of a "
+                  f"{res['moe_prefill']['prefill_span_ms']:.2f} ms prefill span (device events)",
+                  flush=True)
         results.append(res)
         del run
     # bf16 serving: every flash and GLA call took the tensor-core kernel, none the SIMT one.
@@ -3098,6 +3285,14 @@ TRAIN_RUNS = [
     # run trains; J = 2 keeps the recomputed unit's attention blocks in memory.
     ("qwen3-4b 36 layers SFVI, S 4096, remat", "qwen3-4b", 36, "sfvi", 3, 2, 4_411_424_256,
      17_665_472_528, 2, 2, 4096, True),
+    # The MoE block through autograd (one group of 512 tokens, capacity 80;
+    # the load-balance loss in the objective): 8 of olmoe's 16 layers, whose
+    # state (~14.6 B a parameter) would not fit the card whole.
+    ("olmoe-1b-7b 8 layers SFVI", "olmoe-1b-7b", 8, "sfvi", 3, 2, 3_562_573_824,
+     28_522_381_344, TRAIN_J, TRAIN_B, TRAIN_S, False),
+    # M-RoPE behind the 256-token vision prefix (the loss on the 64 text tokens).
+    ("qwen2-vl-2b 28 layers SFVI", "qwen2-vl-2b", 28, "sfvi", 3, 2, 1_546_016_256,
+     12_407_418_912, TRAIN_J, TRAIN_B, TRAIN_S, False),
 ]
 TRAIN_COUNTS = ("reparam_stl_fwd", "reparam_stl_bwd", "fused_combine")
 CARD_GB = 80e9  # the card's memory
@@ -3113,14 +3308,18 @@ def train_launches(algo, steps, avg_every):
 
 
 def train_batches(torch, cfg, steps, B, S):
+    """The train CLI's batches: its token stream, and its vision prefix
+    where the config has one."""
     from repro_torch.device import generator
     from repro_torch.launch import train
 
     toks = train.make_batches(generator(train.DATA_SEED, torch.device("cpu")), cfg, B, S, steps)
     out = []
-    for t in toks:
+    for i, t in enumerate(toks):
         t = torch.from_numpy(t).to(device=DEVICE, dtype=torch.long)
         out.append({"tokens": t[:, :-1], "labels": t[:, 1:]})
+        if cfg.num_vision_tokens:
+            out[-1]["vision"] = train.vision_inputs(cfg, B, i, torch.device(DEVICE))
     return out
 
 
@@ -3204,12 +3403,16 @@ def train_run(torch, modules, label, arch, layers, algo, steps, avg_every, want_
         "peak_gb": peak / 1e9, "bytes_per_round": per_round,
         "meter_bytes": meter.total, "loss": hist["loss"], "launches": counts,
         "launches_per_step": launches, "calls": called,
+        "vision_tokens": cfg.num_vision_tokens, "aux_moe": hist.get("aux_moe"),
     }
-    print(f"  {label}: loss={['%.4f' % v for v in hist['loss']]} s/step="
+    print(f"  {label}: loss={['%.4f' % v for v in hist['loss']]} "
+          f"aux_moe={['%.4f' % v for v in hist.get('aux_moe', [])]} s/step="
           f"{['%.3f' % v for v in step_s]} peak {res['peak_gb']:.2f} GB, params {params:,}, "
           f"bytes/round {per_round:,}, launches={counts}, per step {launches}, "
           f"calls={called}", flush=True)
     assert all(math.isfinite(v) for v in hist["loss"]), label
+    if algo == "sfvi":  # the MoE load-balance loss: about 1 when balanced, 0 without MoE
+        assert all((v > 0.5) if cfg.is_moe else (v == 0.0) for v in hist["aux_moe"]), label
     assert called == {"chunked_attention": chunked,
                       "checkpoint": n_units * steps if remat else 0}, (label, called)
     assert meter.total == 2 * per_round * steps, (label, meter.total)
@@ -3220,21 +3423,26 @@ def train_run(torch, modules, label, arch, layers, algo, steps, avg_every, want_
     return res, counts
 
 
-# (algorithm, backbone dtype, loss limit, leaf limit) of the card-against-CPU
-# steps. bf16: θ, its gradients and Adam's μ round to 8 bits on both sides,
-# so a leaf may part by a few bf16 steps where the two sides' sums round
-# otherwise; the limits are stated, not derived.
-TRAIN_PARITY = [("sfvi", "float32", 1e-4, 1e-3), ("avg", "float32", 1e-4, 1e-3),
-                ("sfvi", "bfloat16", 1e-3, 1e-2)]
+# (arch, layers, algorithm, backbone dtype, loss limit, leaf limit) of the
+# card-against-CPU steps. bf16: θ, its gradients and Adam's μ round to 8 bits
+# on both sides, so a leaf may part by a few bf16 steps where the two sides'
+# sums round otherwise; the limits are stated, not derived. olmoe-1b-7b's
+# MoE layer and qwen2-vl-2b's vision prefix in f32, as qwen3-4b's.
+TRAIN_PARITY = [("qwen3-4b", 1, "sfvi", "float32", 1e-4, 1e-3),
+                ("qwen3-4b", 1, "avg", "float32", 1e-4, 1e-3),
+                ("qwen3-4b", 1, "sfvi", "bfloat16", 1e-3, 1e-2),
+                ("olmoe-1b-7b", 1, "sfvi", "float32", 1e-4, 1e-3),
+                ("qwen2-vl-2b", 2, "sfvi", "float32", 1e-4, 1e-3)]
 
 
 def check_train_cuda_vs_cpu(torch):
-    """qwen3-4b at full width with one layer, B = 4, S = 16, J = 2: the same
-    state (drawn on the CPU), tokens and ε through one step on the card and
-    on the CPU, for each of ``TRAIN_PARITY``: SFVI and SFVI-Avg with its
-    barycenter (``avg_every`` 1) in f32 (loss within 1e-4 relative, every θ,
-    η_G and η_L leaf within 1e-3 relative Frobenius), and SFVI in bf16 (the
-    train cells' dtype: 1e-3 and 1e-2). The largest leaf gap printed."""
+    """Each ``TRAIN_PARITY`` step at full width, B = 4, S = 16, J = 2: the
+    same state (drawn on the CPU), tokens (and vision prefix) and ε through
+    one step on the CPU and on the card: SFVI and SFVI-Avg with its
+    barycenter (``avg_every`` 1) in f32 (loss within 1e-4 relative, every
+    θ, η_G and η_L leaf within 1e-3 relative Frobenius), and SFVI in bf16
+    (the train cells' dtype: 1e-3 and 1e-2). The largest leaf gap printed;
+    an MoE step's routing compared call by call (:class:`RouteLog`)."""
     from repro_torch.configs import get_config
     from repro_torch.launch import steps as S
     from repro_torch.models.backbone.bayes import latent_dims
@@ -3242,8 +3450,8 @@ def check_train_cuda_vs_cpu(torch):
 
     J, B, T = 2, 4, 16
     out = {}
-    for algo, dtype, loss_tol, leaf_tol in TRAIN_PARITY:
-        cfg = dataclasses.replace(get_config("qwen3-4b"), num_layers=1, dtype=dtype)
+    for arch, layers, algo, dtype, loss_tol, leaf_tol in TRAIN_PARITY:
+        cfg = dataclasses.replace(get_config(arch), num_layers=layers, dtype=dtype)
         n_G, n_L = latent_dims(cfg)
         g = torch.Generator().manual_seed(5)
         state, opt = S.init_train_state(g, cfg, J, lr=TRAIN_LR)
@@ -3258,19 +3466,24 @@ def check_train_cuda_vs_cpu(torch):
             draws = (torch.randn((n_G,), generator=g), torch.randn((J, n_L), generator=g))
         tok = torch.randint(0, cfg.vocab_size, (B, T + 1), generator=g)
         batch = {"tokens": tok[:, :-1], "labels": tok[:, 1:]}
+        if cfg.num_vision_tokens:
+            batch["vision"] = torch.randn((B, cfg.num_vision_tokens, cfg.d_model), generator=g)
         fields = [f.name for f in dataclasses.fields(S.TrainState)]
         # A copy (the step updates its state in place), even where DEVICE is the CPU.
         dev_state = S.TrainState(**{f: tree_map(lambda a: a.to(DEVICE, copy=True),
                                                 getattr(state, f))
                                     if f != "step" else state.step for f in fields})
         to_dev = lambda tree: tree_map(lambda a: a.to(DEVICE), tree)  # noqa: E731
+        routes = RouteLog(torch)
         t0 = time.perf_counter()
-        st_card, m_card = step(dev_state, to_dev(batch), 0, draws=to_dev(draws))
+        with routes("record"):
+            st_cpu, m_cpu = step(state, batch, 0, draws=draws)
+        cpu_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        with routes("match"):
+            st_card, m_card = step(dev_state, to_dev(batch), 0, draws=to_dev(draws))
         sync(torch)
         card_s = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        st_cpu, m_cpu = step(state, batch, 0, draws=draws)
-        cpu_s = time.perf_counter() - t0
         loss_rel = abs(float(m_card["loss"]) - float(m_cpu["loss"])) / abs(float(m_cpu["loss"]))
         gaps = []
         for name in ("theta", "eta_G", "eta_L"):
@@ -3279,15 +3492,25 @@ def check_train_cuda_vs_cpu(torch):
                 a, b = a.cpu().double(), b.double()
                 gaps.append(float(torch.linalg.norm((a - b).flatten())
                                   / torch.linalg.norm(b.flatten())))
-        print(f"  train {DEVICE} vs cpu [qwen3-4b, 1 layer at full width, {dtype}, {algo}, "
-              f"J={J}, B={B}, S={T}]: loss {float(m_card['loss']):.6f} vs "
-              f"{float(m_cpu['loss']):.6f} rel={loss_rel:.2e} (<= {loss_tol:g}), largest leaf "
-              f"gap {max(gaps):.2e} of {len(gaps)} leaves (relative Frobenius, <= {leaf_tol:g}); "
-              f"card {card_s:.1f} s, cpu {cpu_s:.1f} s", flush=True)
-        assert loss_rel <= loss_tol and max(gaps) <= leaf_tol, (algo, dtype, loss_rel, max(gaps))
+        aux = (f", aux_moe {float(m_card['aux_moe']):.6f} vs {float(m_cpu['aux_moe']):.6f}; "
+               f"{routes.line()}" if cfg.is_moe else "")
+        print(f"  train {DEVICE} vs cpu [{arch}, {layers} layer(s) at full width, {dtype}, "
+              f"{algo}, J={J}, B={B}, S={T}"
+              f"{' + %d vision' % cfg.num_vision_tokens if cfg.num_vision_tokens else ''}]: "
+              f"loss {float(m_card['loss']):.6f} vs {float(m_cpu['loss']):.6f} "
+              f"rel={loss_rel:.2e} (<= {loss_tol:g}), largest leaf gap {max(gaps):.2e} of "
+              f"{len(gaps)} leaves (relative Frobenius, <= {leaf_tol:g}){aux}; card "
+              f"{card_s:.1f} s, cpu {cpu_s:.1f} s", flush=True)
+        assert loss_rel <= loss_tol and max(gaps) <= leaf_tol, (arch, algo, dtype, loss_rel,
+                                                                 max(gaps))
+        assert bool(routes.kept) == cfg.is_moe
         if algo == "avg":  # the barycenter ran: the silos' rows coincide
             assert float((st_card.eta_G["mu"][0] - st_card.eta_G["mu"][1]).abs().max()) == 0.0
-        out[f"{algo}_{dtype}"] = {"loss_rel": loss_rel, "max_leaf_gap": max(gaps)}
+        key = f"{algo}_{dtype}" if arch == "qwen3-4b" else f"{arch}_{algo}_{dtype}"
+        out[key] = {"loss_rel": loss_rel, "max_leaf_gap": max(gaps)}
+        if cfg.is_moe:
+            out[key].update(flipped_pairs=routes.flips, injected_calls=routes.injected,
+                            min_topk_margin=routes.margin)
         del state, st_cpu, st_card, dev_state
     return out
 
@@ -3652,7 +3875,9 @@ FLASH_TIMES = [("zamba2_prefill_4096_bf16", 4, 4096, 32, 32, 112),
                ("zamba2_prefill_64_bf16", 8, 64, 32, 32, 112),
                ("qwen3_prefill_512_bf16", 8, 512, 32, 8, 128),
                ("llama_gqa3_prefill_64_bf16", 8, 64, 24, 8, 128),
-               ("qwen3_32b_gqa8_prefill_512_bf16", 8, 512, 64, 8, 128)]
+               ("qwen3_32b_gqa8_prefill_512_bf16", 8, 512, 64, 8, 128),
+               ("olmoe_prefill_512_bf16", 8, 512, 16, 16, 128),
+               ("qwen2_vl_gqa6_prefill_512_bf16", 8, 512, 12, 2, 128)]
 GLA_TIMES = [("zamba2_prefill_4096_bf16", 4, 4096, 112, 64, 64),
              ("zamba2_prefill_64_bf16", 8, 64, 112, 64, 64)]
 RMS_TIMES = [("d3584_r16384_bf16", 4 * 4096, 3584), ("d7168_r16384_bf16", 4 * 4096, 7168),

@@ -1,17 +1,22 @@
 """Architecture configs of the port: ``get_config("zamba2-7b")``.
 
 The port's backbone serves (and trains) the architectures whose blocks
-reach flash attention, GLA and RMSNorm without MoE, enc-dec or vision
-modules: zamba2-7b (mamba2 + shared attention), the dense GQA models
-qwen3-4b, qwen3-8b and qwen3-32b (qk-norm) and llama3.2-3b (tied
-embeddings). The JAX package's other registry names raise a ``KeyError``
-that says which work brings them.
+are attention (dense or GQA, with or without qk-norm), mamba2, the MoE
+feed-forward and qwen2-vl's M-RoPE with its vision prefix: zamba2-7b
+(mamba2 + shared attention), the dense GQA models qwen3-4b, qwen3-8b and
+qwen3-32b (qk-norm) and llama3.2-3b (tied embeddings), the MoE models
+olmoe-1b-7b (64 experts, top 8, qk-norm) and phi3.5-moe (16 experts, top
+2), and qwen2-vl-2b. The JAX package's other registry names raise a
+``KeyError`` that says which work brings them.
 """
 from __future__ import annotations
 
 from typing import Dict
 
 from repro_torch.configs.llama3_2_3b import CONFIG as _llama3_2_3b
+from repro_torch.configs.olmoe_1b_7b import CONFIG as _olmoe_1b_7b
+from repro_torch.configs.phi3_5_moe import CONFIG as _phi3_5_moe
+from repro_torch.configs.qwen2_vl_2b import CONFIG as _qwen2_vl_2b
 from repro_torch.configs.qwen3_4b import CONFIG as _qwen3_4b
 from repro_torch.configs.qwen3_8b import CONFIG as _qwen3_8b
 from repro_torch.configs.qwen3_32b import CONFIG as _qwen3_32b
@@ -19,16 +24,14 @@ from repro_torch.configs.zamba2_7b import CONFIG as _zamba2
 from repro_torch.models.backbone.config import INPUT_SHAPES, ArchConfig, InputShape
 
 REGISTRY: Dict[str, ArchConfig] = {
-    c.name: c for c in [_zamba2, _qwen3_4b, _qwen3_8b, _qwen3_32b, _llama3_2_3b]}
+    c.name: c for c in [_zamba2, _qwen3_4b, _qwen3_8b, _qwen3_32b, _llama3_2_3b, _olmoe_1b_7b,
+                        _phi3_5_moe, _qwen2_vl_2b]}
 
 ARCH_NAMES = tuple(REGISTRY)
 
 # The JAX package's other configs, and the backbone modules each still needs.
 NOT_PORTED = {
     "whisper-base": "the whisper encoder and cross-attention",
-    "olmoe-1b-7b": "the MoE block",
-    "phi3.5-moe-42b-a6.6b": "the MoE block",
-    "qwen2-vl-2b": "M-RoPE and the vision stub",
     "xlstm-1.3b": "the mLSTM/sLSTM blocks",
 }
 

@@ -7,7 +7,9 @@ The port of ``repro/launch/serve_backbone.py``, with its flags plus
         --batch 8 --prompt-len 64 --gen 32 --full
 
 Without ``--full`` it serves the reduced config (2 layers, f32). Weights
-and variational parameters are random, drawn from seed 0. Greedy
+and variational parameters are random, drawn from seed 0; so are the
+stub patch embeddings a vision config (qwen2-vl-2b) prefixes to each
+prompt, whose tokens count in the cache's length. Greedy
 decoding (``--temperature 0``, the default) is deterministic; sampling
 draws from a torch generator (not JAX's threefry stream).
 """
@@ -47,19 +49,24 @@ class ServeRun:
 
 def serve(cfg: ArchConfig, *, batch: int, prompt_len: int, gen: int, silos: int,
           device: torch.device, temperature: float = 0.0) -> ServeRun:
-    """Random weights from seed 0, one prefill of a random prompt, then
-    ``gen - 1`` decode steps, timed on the host clock (each phase ends in a
-    device synchronize)."""
+    """Random weights from seed 0, one prefill of a random prompt (after
+    ``cfg.num_vision_tokens`` random f32 patch embeddings where the config
+    has a vision prefix), then ``gen - 1`` decode steps, timed on the host
+    clock (each phase ends in a device synchronize)."""
     if batch % silos:
         raise ValueError(f"batch {batch} must be a multiple of silos {silos}")
     g = generator((SEED, 0), device)
     theta = T.init_params(g, cfg)
     eta_G = S.init_eta_G(g, cfg)
     eta_L = S.init_eta_L(g, cfg, silos)
-    prefill = S.make_serve_prefill(cfg, silos, max_len=prompt_len + gen)
+    max_len = prompt_len + gen + cfg.num_vision_tokens
+    prefill = S.make_serve_prefill(cfg, silos, max_len=max_len)
     decode = S.make_serve_decode(cfg, silos)
     prompt = {"tokens": torch.randint(0, cfg.vocab_size, (batch, prompt_len), generator=g,
                                       device=device)}
+    if cfg.num_vision_tokens:
+        prompt["vision"] = torch.randn((batch, cfg.num_vision_tokens, cfg.d_model),
+                                       generator=g, device=device)
     sample_gen = generator((SEED, 1), device)
 
     def sample(logits):

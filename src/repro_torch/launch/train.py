@@ -18,6 +18,8 @@ has no multi-process training (its multi-process federation is
 ``repro_torch.federated.run --mesh ...,multiprocess``). ``--dump-spec``
 prints the reference's JSON. Weights come from seed 0 and the token
 stream from seed 1, on torch generators (not the reference's numbers).
+A vision config (qwen2-vl-2b) gets f32 stub patch embeddings with each
+batch, drawn from seed (1, step).
 """
 from __future__ import annotations
 
@@ -50,6 +52,13 @@ def make_batches(gen: torch.Generator, cfg: ArchConfig, batch: int, seq: int,
     pre-chunked into (steps, batch, seq + 1) int32."""
     toks = make_token_stream(gen, steps * batch * (seq + 1), cfg.vocab_size)
     return toks.reshape(steps, batch, seq + 1)
+
+
+def vision_inputs(cfg: ArchConfig, batch: int, step: int, device) -> torch.Tensor:
+    """The stub vision encoder's patch embeddings of one step's batch:
+    (batch, num_vision_tokens, d_model) f32 normals from seed (1, step)."""
+    return torch.randn((batch, cfg.num_vision_tokens, cfg.d_model),
+                       generator=generator((DATA_SEED, step), device), device=device)
 
 
 def setup(cfg: ArchConfig, algo: str, silos: int, lr: float, avg_every: int, device,
@@ -148,7 +157,10 @@ def main(argv=None):
     def batches():
         for i in range(args.steps):
             step = torch.from_numpy(toks[i]).to(device=device, dtype=torch.long)
-            yield {"tokens": step[:, :-1], "labels": step[:, 1:]}
+            batch = {"tokens": step[:, :-1], "labels": step[:, 1:]}
+            if cfg.num_vision_tokens:
+                batch["vision"] = vision_inputs(cfg, args.batch, i, device)
+            yield batch
 
     def on_metrics(i, m, st):
         if i % args.log_every == 0 or i == args.steps - 1:

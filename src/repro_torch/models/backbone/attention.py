@@ -32,6 +32,7 @@ from repro_torch.kernels.attention import flash_attention
 from repro_torch.kernels.ref import NEG_INF
 from repro_torch.models.backbone.config import check_port_supported
 from repro_torch.models.backbone.layers import (
+    apply_mrope,
     apply_rope,
     dense_init,
     dtype_of,
@@ -68,10 +69,9 @@ def _project_qkv(params, cfg, x, positions, norm=rmsnorm):
         q = norm(q, params["q_norm"], cfg.norm_eps)
         k = norm(k, params["k_norm"], cfg.norm_eps)
     if positions is not None:
-        if cfg.mrope:
-            raise NotImplementedError("M-RoPE (qwen2-vl) is not ported yet")
-        q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
+        rope = apply_mrope if cfg.mrope else apply_rope  # M-RoPE: positions (3, B, S)
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
     return q, k, v
 
 
@@ -186,6 +186,8 @@ def attention_decode(params, cfg, x, cache, positions=None):
     Sliding-window configs keep a ring buffer of ``window`` entries; the
     new key goes to slot pos % cache_len. The cache position stays a
     device tensor, so a decode step never waits on the host.
+    ``positions`` overrides the rope position (M-RoPE's (3, B, 1) text
+    position differs from the cache counter).
     """
     check_port_supported(cfg)
     B = x.shape[0]
@@ -193,6 +195,8 @@ def attention_decode(params, cfg, x, cache, positions=None):
     pos = cache["pos"]
     if positions is None:
         positions = pos.expand(B, 1)
+        if cfg.mrope:
+            positions = positions[None].expand(3, B, 1)
     q, k_new, v_new = _project_qkv(params, cfg, x, positions)
 
     cache_len = cache["k"].shape[1]

@@ -51,7 +51,7 @@ def rmsnorm_train(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6) -> t
 
 
 # ---------------------------------------------------------------------------
-# Rotary position embeddings
+# Rotary position embeddings (RoPE + Qwen2-VL M-RoPE)
 # ---------------------------------------------------------------------------
 
 def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
@@ -69,6 +69,53 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def mrope_grid(num_vision_tokens: int) -> tuple:
+    """Default square-ish patch grid for the stub vision frontend."""
+    side = max(1, int(math.sqrt(max(num_vision_tokens, 1))))
+    return (side, max(1, num_vision_tokens // side))
+
+
+def mrope_text_start(num_vision_tokens: int) -> int:
+    """First text position after the vision block (M-RoPE convention)."""
+    gh, gw = mrope_grid(num_vision_tokens)
+    return int(max(gh, gw)) if num_vision_tokens else 0
+
+
+def mrope_positions(batch: int, seq_len: int, num_vision_tokens: int,
+                    grid_hw: Optional[tuple] = None, device=None) -> torch.Tensor:
+    """Qwen2-VL multimodal rotary positions: 3 channels (temporal, h, w).
+
+    Vision tokens get (t=0, h=row, w=col) over the patch grid; text tokens
+    get t=h=w = a running index that starts after the largest grid side.
+    Returns (3, batch, seq_len) int32.
+    """
+    gh, gw = grid_hw if grid_hw is not None else mrope_grid(num_vision_tokens)
+    vis = torch.arange(num_vision_tokens, dtype=torch.int32, device=device)
+    text = int(max(gh, gw)) + torch.arange(seq_len - num_vision_tokens, dtype=torch.int32,
+                                           device=device)
+    pos = torch.stack([torch.cat([torch.zeros_like(vis), text]),
+                       torch.cat([vis // gw, text]),
+                       torch.cat([vis % gw, text])])  # (3, S)
+    return pos[:, None, :].expand(3, batch, seq_len)
+
+
+def apply_mrope(x: torch.Tensor, positions3: torch.Tensor, theta: float) -> torch.Tensor:
+    """M-RoPE: head_dim split into 3 sections (t, h, w) of 1 : 1.5 : 1.5
+    pairs (16 / 24 / 24 of hd 128's 64 pairs), each rotated by its own
+    position channel. As in the JAX package, each section goes through
+    :func:`apply_rope` on its own slice, so its frequencies come from the
+    section's width, not from hd. x: (B, S, H, hd); positions3: (3, B, S)."""
+    pairs = x.shape[-1] // 2
+    pt = pairs // 4
+    ph = (pairs - pt) // 2
+    outs, start = [], 0
+    for i, width in enumerate((2 * pt, 2 * ph, 2 * (pairs - pt - ph))):
+        if width:
+            outs.append(apply_rope(x[..., start:start + width], positions3[i], theta))
+            start += width
+    return torch.cat(outs, dim=-1)
 
 
 # ---------------------------------------------------------------------------

@@ -1,9 +1,12 @@
-"""Backbone assembly for the port's two architectures.
+"""Backbone assembly: counterpart of ``repro/models/backbone/transformer.py``.
 
-Counterpart of ``repro/models/backbone/transformer.py``, for the block
-kinds the slice serves: ``attn`` (per layer, or zamba2's ONE shared
-attention + MLP block applied every ``hybrid_attn_period``-th layer) and
-``mamba2``. Other kinds (mLSTM, sLSTM, MoE, enc-dec, vision) raise.
+Block kinds: ``attn`` (per layer, or zamba2's ONE shared attention + MLP
+block applied every ``hybrid_attn_period``-th layer), its feed-forward a
+SwiGLU MLP or the MoE block (:mod:`~repro_torch.models.backbone.moe`:
+capacity routing in prefill and training, every expert in decode), and
+``mamba2``. Qwen2-VL prepends projected stub patch embeddings
+(``batch["vision"]``) and rotates with M-RoPE positions. mLSTM, sLSTM and
+enc-dec (whisper) raise.
 
 Parameters keep the JAX layout, so a JAX parameter tree converts leaf by
 leaf (:func:`repro_torch.convert.backbone_params_from_jax`): the layer list
@@ -24,7 +27,8 @@ counterparts of the jnp functions the JAX package trains through
 (``use_pallas`` is False by default there) — ``attention_block``
 (``full_attention`` / ``chunked_attention``), ``mamba2_block``
 (``chunked_gla``) and ``rmsnorm_train`` for every norm — and launches no
-backbone kernel.
+backbone kernel. Every mode sums the MoE blocks' load-balance losses;
+:func:`forward` returns the sum (0 without MoE), the others drop it.
 """
 from __future__ import annotations
 
@@ -47,10 +51,13 @@ from repro_torch.models.backbone.layers import (
     embed_init,
     mlp,
     mlp_init,
+    mrope_positions,
+    mrope_text_start,
     rmsnorm,
     rmsnorm_init,
     rmsnorm_train,
 )
+from repro_torch.models.backbone.moe import moe_block, moe_block_dense, moe_init
 from repro_torch.models.backbone.ssm import (
     mamba2_block,
     mamba2_decode,
@@ -67,10 +74,10 @@ PORTED_KINDS = ("attn", "mamba2")
 def _check_arch(cfg: ArchConfig) -> None:
     check_port_supported(cfg)
     missing = [k for k in set(cfg.block_pattern) if k not in PORTED_KINDS]
-    if missing or cfg.is_moe or cfg.is_encoder_decoder or cfg.num_vision_tokens or cfg.mrope:
+    if missing or cfg.is_encoder_decoder:
         raise NotImplementedError(
-            f"{cfg.name}: the port's backbone has only dense/GQA attention and mamba2 "
-            f"blocks (no MoE, mLSTM/sLSTM, enc-dec or vision yet)")
+            f"{cfg.name}: the port's backbone has attention (dense, GQA, MoE, M-RoPE "
+            f"with a vision prefix) and mamba2 blocks (no mLSTM/sLSTM or enc-dec yet)")
 
 
 # ---------------------------------------------------------------------------
@@ -98,7 +105,9 @@ def _block_init(gen: torch.Generator, cfg: ArchConfig, kind: str) -> PyTree:
             "attn": attn_init(gen, cfg),
             "norm2": rmsnorm_init(cfg.d_model, dtype, dev),
         }
-        if cfg.d_ff:
+        if cfg.is_moe:
+            p["moe"] = moe_init(gen, cfg)
+        elif cfg.d_ff:
             p["mlp"] = mlp_init(gen, cfg.d_model, cfg.d_ff, dtype)
         return p
     if kind == "mamba2":
@@ -129,6 +138,9 @@ def init_params(gen: torch.Generator, cfg: ArchConfig) -> PyTree:
         if cfg.d_ff:
             shared["mlp"] = mlp_init(gen, cfg.d_model, cfg.d_ff, dtype)
         params["shared_attn"] = shared
+    if cfg.num_vision_tokens:
+        # Projector from the (stubbed) vision encoder's embedding space.
+        params["vision_proj"] = dense_init(gen, cfg.d_model, cfg.d_model, dtype)
     return params
 
 
@@ -143,7 +155,9 @@ def param_count(params: PyTree) -> int:
 # ---------------------------------------------------------------------------
 
 def _apply_block(p, shared, cfg, kind, x, positions, mode, cache):
-    """Returns (x, new_cache)."""
+    """Returns (x, new_cache, aux_loss); the aux loss is the float 0.0 for a
+    block without MoE (no device op)."""
+    aux = 0.0
     new_cache = cache
     norm = rmsnorm_train if mode == "train" else rmsnorm
     if kind == "attn":
@@ -160,20 +174,25 @@ def _apply_block(p, shared, cfg, kind, x, positions, mode, cache):
         if mode != "train":
             new_cache = dict(cache) if cache is not None else {}
             new_cache["attn"] = new_attn_cache
-        if "mlp" in attn_p:
+        if "moe" in attn_p or "mlp" in attn_p:
             h2 = norm(x, attn_p["norm2"], cfg.norm_eps)
-            x = x + mlp(attn_p["mlp"], h2)
-        return x, new_cache
+            if "moe" in attn_p:  # every expert in decode, the capacity route otherwise
+                moe = moe_block_dense if mode == "decode" else moe_block
+                y2, aux = moe(attn_p["moe"], cfg, h2)
+            else:
+                y2 = mlp(attn_p["mlp"], h2)
+            x = x + y2
+        return x, new_cache, aux
     if kind != "mamba2":
         raise NotImplementedError(f"block kind {kind!r} is not ported yet")
     h = norm(x, p["norm1"], cfg.norm_eps)
     if mode == "train":
-        return x + mamba2_block(p["mixer"], cfg, h), new_cache
+        return x + mamba2_block(p["mixer"], cfg, h), new_cache, aux
     if mode == "prefill":
         y, new_cache = mamba2_prefill(p["mixer"], cfg, h)
     else:
         y, new_cache = mamba2_decode(p["mixer"], cfg, h, cache)
-    return x + y, new_cache
+    return x + y, new_cache, aux
 
 
 # ---------------------------------------------------------------------------
@@ -192,10 +211,11 @@ def _unstack(tree: PyTree, n: int) -> List[PyTree]:
 def _apply_stack(params, cfg, x, positions, mode, caches, remat=False):
     """caches: {"units": {slotS: stacked cache}, "tail": {layerI: cache}} or None.
 
-    Returns (x, new caches); the unit caches are stacked on a leading axis
-    again, as the JAX scan emits them. ``remat`` recomputes each unit in
-    the backward (``torch.utils.checkpoint``), as ``jax.checkpoint`` of the
-    unit does in the JAX package; the tail is applied without it, as there.
+    Returns (x, new caches, summed aux loss); the unit caches are stacked
+    on a leading axis again, as the JAX scan emits them. ``remat``
+    recomputes each unit in the backward (``torch.utils.checkpoint``), as
+    ``jax.checkpoint`` of the unit does in the JAX package; the tail is
+    applied without it, as there.
     """
     unit, n_units, tail = unit_structure(cfg)
     shared = params.get("shared_attn")
@@ -203,21 +223,23 @@ def _apply_stack(params, cfg, x, positions, mode, caches, remat=False):
     slot_params = {s: _unstack(params["units"][f"slot{s}"], n_units) for s in range(len(unit))}
 
     def unit_fn(x, i):
-        out_c = {}
+        out_c, aux = {}, 0.0
         for s, kind in enumerate(unit):
             c = tree_map(lambda a: a[i], unit_caches[f"slot{s}"]) if unit_caches else None
             sh = shared if (kind == "attn" and shared is not None) else None
-            x, nc = _apply_block(slot_params[s][i], sh, cfg, kind, x, positions, mode, c)
+            x, nc, a = _apply_block(slot_params[s][i], sh, cfg, kind, x, positions, mode, c)
+            aux = aux + a
             if nc is not None:
                 out_c[f"slot{s}"] = nc
-        return x, out_c
+        return x, out_c, aux
 
-    outs = []
+    outs, aux_total = [], 0.0
     for i in range(n_units):
         if remat:
-            x, out_c = checkpoint(unit_fn, x, i, use_reentrant=False)
+            x, out_c, aux = checkpoint(unit_fn, x, i, use_reentrant=False)
         else:
-            x, out_c = unit_fn(x, i)
+            x, out_c, aux = unit_fn(x, i)
+        aux_total = aux_total + aux
         outs.append(out_c)
     new_caches: Dict[str, Any] = {"units": {}, "tail": {}}
     if mode != "train":
@@ -225,23 +247,36 @@ def _apply_stack(params, cfg, x, positions, mode, caches, remat=False):
     for i, kind in enumerate(tail):
         c = (caches or {}).get("tail", {}).get(f"layer{i}") if caches else None
         sh = shared if (kind == "attn" and shared is not None) else None
-        x, nc = _apply_block(params["tail"][f"layer{i}"], sh, cfg, kind, x, positions, mode, c)
+        x, nc, aux = _apply_block(params["tail"][f"layer{i}"], sh, cfg, kind, x, positions,
+                                  mode, c)
+        aux_total = aux_total + aux
         if nc is not None:
             new_caches["tail"][f"layer{i}"] = nc
-    return x, new_caches
+    return x, new_caches, aux_total
 
 
 # ---------------------------------------------------------------------------
 # Inputs and outputs
 # ---------------------------------------------------------------------------
 
-def _embed_inputs(params, cfg, batch, pos_offset: int = 0):
-    """batch: {"tokens": (B, S)} (text only). Returns (x, positions (B, S))."""
+def _embed_inputs(params, cfg, batch):
+    """batch: {"tokens": (B, S), optional "vision": (B, nv, D)}.
+
+    Returns (x, positions): the projected vision embeddings ahead of the
+    token embeddings, and M-RoPE's (3, B, S_total) positions where
+    ``cfg.mrope``, else (B, S_total)."""
     tokens = batch["tokens"]
     B, S = tokens.shape
     x = embed(params["embed"], tokens)
-    positions = (pos_offset + torch.arange(S, device=tokens.device))[None].expand(B, S)
-    return x, positions
+    nv = 0
+    if cfg.num_vision_tokens and "vision" in batch:
+        vis = batch["vision"].to(x.dtype) @ params["vision_proj"]
+        x = torch.cat([vis, x], dim=1)
+        nv = cfg.num_vision_tokens
+    S_total = x.shape[1]
+    if cfg.mrope:
+        return x, mrope_positions(B, S_total, nv, device=tokens.device)
+    return x, torch.arange(S_total, device=tokens.device)[None].expand(B, S_total)
 
 
 def _logits(params, cfg, h):
@@ -254,22 +289,26 @@ def _logits(params, cfg, h):
 
 def forward(params, cfg: ArchConfig, batch, remat: bool = True):
     """Full-sequence logits, differentiable (mode ``"train"``: no backbone
-    kernel). Returns (logits (B, S, V), aux_loss 0, h_final)."""
+    kernel). Returns (logits (B, S, V), aux_loss, h_final); with a vision
+    prefix, logits and h cover the text positions only."""
     _check_arch(cfg)
     x, positions = _embed_inputs(params, cfg, batch)
-    x, _ = _apply_stack(params, cfg, x, positions, "train", None, remat=remat)
+    x, _, aux = _apply_stack(params, cfg, x, positions, "train", None, remat=remat)
     h = rmsnorm_train(x, params["final_norm"], cfg.norm_eps)
-    return _logits(params, cfg, h), torch.zeros((), device=h.device), h
+    if cfg.num_vision_tokens and "vision" in batch:
+        h = h[:, cfg.num_vision_tokens:]  # loss only over text positions
+    aux = torch.as_tensor(aux, dtype=torch.float32, device=h.device)
+    return _logits(params, cfg, h), aux, h
 
 
 def prefill(params, cfg: ArchConfig, batch, max_len: int):
     """Full-sequence prefill. Returns (last-position logits, cache, h)."""
     _check_arch(cfg)
     x, positions = _embed_inputs(params, cfg, batch)
-    x, caches = _apply_stack(params, cfg, x, positions, "prefill", None)
+    x, caches, _ = _apply_stack(params, cfg, x, positions, "prefill", None)
     h = rmsnorm(x[:, -1:], params["final_norm"], cfg.norm_eps)
     caches = _resize_attn_caches(params, cfg, caches, max_len)
-    caches["t"] = torch.tensor(x.shape[1], dtype=torch.int32, device=x.device)
+    caches["t"] = torch.tensor(x.shape[1], dtype=torch.int32, device=x.device)  # incl. vision
     return _logits(params, cfg, h), caches, h
 
 
@@ -292,7 +331,7 @@ def _resize_attn_caches(params, cfg, caches, max_len):
     def fix(c):
         window = cfg.sliding_window
         cur_len = c["k"].shape[-3]
-        # Non-windowed caches never truncate.
+        # Non-windowed caches never truncate (e.g. the vision prefix).
         target = min(window, max_len) if window else max(max_len, cur_len)
         return {"k": pad_to(c["k"], target), "v": pad_to(c["v"], target), "pos": c["pos"]}
 
@@ -310,8 +349,13 @@ def decode_step(params, cfg: ArchConfig, tokens, caches):
     """One decode step. tokens: (B, 1). Returns (logits (B,1,V), new caches, h)."""
     _check_arch(cfg)
     x = embed(params["embed"], tokens)
-    # attention_decode derives the rope position from its cache's "pos".
-    x, new_caches = _apply_stack(params, cfg, x, None, "decode", caches)
+    positions = None  # attention_decode derives the rope position from its cache's "pos"
+    if cfg.mrope:
+        # Text M-RoPE position: start + (t - num_vision) on all 3 channels.
+        nv = cfg.num_vision_tokens
+        p = (mrope_text_start(nv) + caches["t"] - nv).to(torch.int32)
+        positions = p.expand(3, tokens.shape[0], 1)
+    x, new_caches, _ = _apply_stack(params, cfg, x, positions, "decode", caches)
     new_caches["t"] = caches["t"] + 1
     h = rmsnorm(x, params["final_norm"], cfg.norm_eps)
     return _logits(params, cfg, h), new_caches, h

@@ -181,8 +181,10 @@ def test_empty_cache_inits_match_jax():
 
 
 def test_unported_configs_raise():
-    with pytest.raises(KeyError, match="MoE"):
-        t_get_config("olmoe-1b-7b")
+    with pytest.raises(KeyError, match="whisper"):
+        t_get_config("whisper-base")
+    with pytest.raises(KeyError, match="mLSTM"):
+        t_get_config("xlstm-1.3b")
     with pytest.raises(KeyError, match="unknown"):
         t_get_config("gpt-9")
     cfg = t_get_config("qwen3-4b").reduced()
@@ -194,8 +196,9 @@ def test_unported_configs_raise():
     perf = dataclasses.replace(cfg.perf, pad_heads=16)
     with pytest.raises(NotImplementedError, match="PerfConfig"):
         TT.prefill(params, dataclasses.replace(cfg, perf=perf), tokens, 8)
-    with pytest.raises(NotImplementedError):
-        TT.init_params(gen, dataclasses.replace(cfg, num_experts=4, arch_type="moe"))
+    with pytest.raises(NotImplementedError, match="enc-dec"):
+        TT.init_params(gen, dataclasses.replace(cfg, is_encoder_decoder=True,
+                                                num_encoder_layers=2, arch_type="audio"))
 
 
 def test_sliding_window_ring_buffer_matches_jax():
