@@ -14,6 +14,20 @@
 //   S_out  = e^{L_C} S_in + (k * e^{L_C - L})^T v
 // and, when asked, S after the last chunk written out (B, H, dk, dv) f32.
 //
+// Past dk = 128 (mLSTM's dk = 1,024) the state is split along dk as well as
+// dv: grid axis z takes tiles of 128 rows of dk, and each block walks all
+// chunks with its (dk tile) x (dv slice) piece of S. Both terms of y are
+// sums over dk (q_i k_i^T o D) v + e^L (q_i S_in,i), so a block's y is a
+// partial: each writes its f32 partial to a workspace (dk tiles, B, S, H,
+// dv) that gla_reduce_kernel sums in tile order and casts once to q's
+// type, as the TPU kernel casts its f32 y once. No atomics: the sum's order
+// is fixed, so two runs give the same bits. Every block recomputes the
+// cumsum and decays from log_a (they depend on (b, h, t) only) and writes
+// its own piece of the final state. The tensor-core kernel then feeds P to
+// P v as a bf16 hi + lo pair (the tiles' partial scores may cancel in the
+// sum, which P rounded once a tile would not survive). Up to dk = 128 there
+// is one tile, no workspace and no second launch.
+//
 // Built by repro_torch/kernels/build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared -Xcompiler -fPIC
 // into a shared library with a plain C interface, loaded with ctypes. The
@@ -62,14 +76,18 @@
 //     with head stride 0 is never copied per head. Rows past S and columns
 //     past dk or dv are zero-filled: identity steps, no padded copies.
 //     Where a row is not 16-byte aligned (dk or dv % 8 != 0, odd strides)
-//     the copies are plain element loads instead (vec = 0).
-//   - dk <= 128 (padded to 64 or 128 in shared memory), any dv <= 128.
+//     the copies are plain element loads instead; up to dk = 128 all three
+//     go one way, past it q and k are copied whatever v allows (mLSTM's
+//     v rows of 1,025 take element loads).
+//   - a dk tile <= 128 (padded to 64 or 128 in shared memory); dv slices of
+//     64 with the last one masked (mLSTM's 1,025 = 16 x 64 + 1).
 //
 // f32: gla_kernel, the SIMT kernel of the first port, the f32 parity route
 //   (as flash's f32 inputs take its SIMT kernel). One block of 256 threads
-//   per (batch, head) walks the chunks in order with the state in f32
-//   shared memory; a 16 x 16 thread grid forms the scores, P v + inter and
-//   the update, the cumsum on one thread. C = 64: the C x C f32 score tile
+//   per (batch, head, dk tile, dv tile of up to 128 each) walks the chunks
+//   in order with its piece of the state in f32 shared memory; a 16 x 16
+//   thread grid forms the scores, P v + inter and the update, the cumsum on
+//   one thread. C = 64: the C x C f32 score tile
 //   is 16 KB, so two blocks fit an SM.
 
 #include <cuda_bf16.h>
@@ -81,7 +99,9 @@ namespace {
 constexpr int kC = 64;         // chunk length
 constexpr int kThreads = 256;  // 16 x 16
 constexpr int kRows = kC / 16;
-constexpr int kMaxD = 128;
+constexpr int kMaxD = 128;        // a dk tile (both kernels), a dv tile (SIMT)
+constexpr int kMaxGridYZ = 65535;  // grid y and z: dv slices, dk tiles
+constexpr int kReduceBlocks = 132 * 8;  // the reduction's grid: 8 blocks an SM at most
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -99,6 +119,7 @@ struct Params {
   const float* a;
   void* out;
   float* state;  // (B, H, dk, dv) f32 after the last chunk, or nullptr
+  float* ws;     // (dk tiles, B, S, H, dv) f32 partial y when dk is split, else nullptr
   long long q_sb, q_ss, q_sh;  // strides (elements) of batch, seq, head
   long long k_sb, k_ss, k_sh;
   long long v_sb, v_ss, v_sh;
@@ -123,35 +144,45 @@ __device__ __forceinline__ void load_chunk(float* __restrict__ dst, const T* __r
   }
 }
 
-// NK >= ceil(dk / 16), NV >= ceil(dv / 16) column groups a thread.
+// The SIMT kernel's tile of dk and of dv: the whole of each up to kMaxD.
+__host__ __device__ __forceinline__ int simt_tile(int d) { return d < kMaxD ? d : kMaxD; }
+
+// Grid (B * H, dv tiles, dk tiles); NK >= ceil(tile dk / 16), NV >= ceil(tile
+// dv / 16) column groups a thread. A block's live rows of dk are i0 .. i0 +
+// dkt - 1 and its live columns of dv j0 .. j0 + dvt - 1.
 template <typename T, int NK, int NV>
 __global__ void __launch_bounds__(kThreads)
 gla_kernel(const Params p) {
   extern __shared__ float smem[];
-  const int ldk = odd_ld(p.dk), ldv = odd_ld(p.dv);
+  const int tk = simt_tile(p.dk), tv = simt_tile(p.dv);
+  const int ldk = odd_ld(tk), ldv = odd_ld(tv);
   constexpr int ldp = kC + 1;
   float* qs = smem;               // kC x ldk (q, then q * e^L)
   float* ks = qs + kC * ldk;      // kC x ldk (k, then k * e^{L_C - L})
   float* vs = ks + kC * ldk;      // kC x ldv
   float* ps = vs + kC * ldv;      // kC x ldp decay-weighted scores
-  float* st = ps + kC * ldp;      // dk x ldv state
-  float* cum = st + p.dk * ldv;   // kC in-chunk cumsum of log_a
+  float* st = ps + kC * ldp;      // tk x ldv state
+  float* cum = st + tk * ldv;     // kC in-chunk cumsum of log_a
 
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
   const int b = blockIdx.x / p.H, h = blockIdx.x % p.H;
-  const T* qp = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const T* kp = static_cast<const T*>(p.k) + b * p.k_sb + h * p.k_sh;
-  const T* vp = static_cast<const T*>(p.v) + b * p.v_sb + h * p.v_sh;
+  const int i0 = blockIdx.z * tk, j0 = blockIdx.y * tv;
+  const int dkt = min(tk, p.dk - i0), dvt = min(tv, p.dv - j0);
+  const T* qp = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh + i0;
+  const T* kp = static_cast<const T*>(p.k) + b * p.k_sb + h * p.k_sh + i0;
+  const T* vp = static_cast<const T*>(p.v) + b * p.v_sb + h * p.v_sh + j0;
   const float* ap = p.a + b * p.a_sb + h * p.a_sh;
   T* op = static_cast<T*>(p.out);
+  float* wp = p.ws == nullptr ? nullptr
+                              : p.ws + static_cast<long long>(blockIdx.z) * gridDim.x * p.S * p.dv;
 
-  for (int idx = threadIdx.x; idx < p.dk * ldv; idx += kThreads) st[idx] = 0.0f;
+  for (int idx = threadIdx.x; idx < tk * ldv; idx += kThreads) st[idx] = 0.0f;
 
   for (int t0 = 0; t0 < p.S; t0 += kC) {
     __syncthreads();  // the previous chunk is done with every buffer
-    load_chunk(qs, qp, p.q_ss, t0, p.S, p.dk, ldk);
-    load_chunk(ks, kp, p.k_ss, t0, p.S, p.dk, ldk);
-    load_chunk(vs, vp, p.v_ss, t0, p.S, p.dv, ldv);
+    load_chunk(qs, qp, p.q_ss, t0, p.S, dkt, ldk);
+    load_chunk(ks, kp, p.k_ss, t0, p.S, dkt, ldk);
+    load_chunk(vs, vp, p.v_ss, t0, p.S, dvt, ldv);
     if (threadIdx.x < kC) {
       const int t = t0 + threadIdx.x;
       cum[threadIdx.x] = t < p.S ? ap[static_cast<long long>(t) * p.a_ss] : 0.0f;
@@ -173,7 +204,7 @@ gla_kernel(const Params p) {
     for (int i = 0; i < kRows; ++i)
 #pragma unroll
       for (int j = 0; j < kRows; ++j) sc[i][j] = 0.0f;
-    for (int d = 0; d < p.dk; ++d) {
+    for (int d = 0; d < dkt; ++d) {
       float a[kRows], c[kRows];
 #pragma unroll
       for (int i = 0; i < kRows; ++i) a[i] = qs[(ty + 16 * i) * ldk + d];
@@ -196,8 +227,8 @@ gla_kernel(const Params p) {
     __syncthreads();
 
     // q * e^L for the inter-chunk term, k * e^{L_C - L} for the state update.
-    for (int idx = threadIdx.x; idx < kC * p.dk; idx += kThreads) {
-      const int t = idx / p.dk, d = idx - t * p.dk;
+    for (int idx = threadIdx.x; idx < kC * dkt; idx += kThreads) {
+      const int t = idx / dkt, d = idx - t * dkt;
       qs[t * ldk + d] *= expf(cum[t]);
       ks[t * ldk + d] *= expf(total - cum[t]);
     }
@@ -215,23 +246,31 @@ gla_kernel(const Params p) {
 #pragma unroll
         for (int j = 0; j < NV; ++j) {
           const int c = tx + 16 * j;
-          if (c < p.dv) intra[j] += w * vs[s * ldv + c];
+          if (c < dvt) intra[j] += w * vs[s * ldv + c];
         }
       }
-      for (int d = 0; d < p.dk; ++d) {
+      for (int d = 0; d < dkt; ++d) {
         const float w = qs[t * ldk + d];
 #pragma unroll
         for (int j = 0; j < NV; ++j) {
           const int c = tx + 16 * j;
-          if (c < p.dv) inter[j] += w * st[d * ldv + c];
+          if (c < dvt) inter[j] += w * st[d * ldv + c];
         }
       }
       if (t0 + t < p.S) {
-        T* orow = op + ((static_cast<long long>(b) * p.S + t0 + t) * p.H + h) * p.dv;
+        const long long row = ((static_cast<long long>(b) * p.S + t0 + t) * p.H + h) * p.dv + j0;
+        if (wp != nullptr) {  // this dk tile's f32 partial
 #pragma unroll
-        for (int j = 0; j < NV; ++j) {
-          const int c = tx + 16 * j;
-          if (c < p.dv) orow[c] = from_f32<T>(intra[j] + inter[j]);
+          for (int j = 0; j < NV; ++j) {
+            const int c = tx + 16 * j;
+            if (c < dvt) wp[row + c] = intra[j] + inter[j];
+          }
+        } else {
+#pragma unroll
+          for (int j = 0; j < NV; ++j) {
+            const int c = tx + 16 * j;
+            if (c < dvt) op[row + c] = from_f32<T>(intra[j] + inter[j]);
+          }
         }
       }
     }
@@ -242,7 +281,7 @@ gla_kernel(const Params p) {
 #pragma unroll
     for (int i = 0; i < NK; ++i) {
       const int d = ty + 16 * i;
-      if (d >= p.dk) continue;
+      if (d >= dkt) continue;
       float acc[NV];
 #pragma unroll
       for (int j = 0; j < NV; ++j) acc[j] = 0.0f;
@@ -251,40 +290,57 @@ gla_kernel(const Params p) {
 #pragma unroll
         for (int j = 0; j < NV; ++j) {
           const int c = tx + 16 * j;
-          if (c < p.dv) acc[j] += w * vs[s * ldv + c];
+          if (c < dvt) acc[j] += w * vs[s * ldv + c];
         }
       }
 #pragma unroll
       for (int j = 0; j < NV; ++j) {
         const int c = tx + 16 * j;
-        if (c < p.dv) st[d * ldv + c] = st[d * ldv + c] * decay + acc[j];
+        if (c < dvt) st[d * ldv + c] = st[d * ldv + c] * decay + acc[j];
       }
     }
   }
   if (p.state != nullptr) {
     __syncthreads();  // the last update is done
     float* sp = p.state + (static_cast<long long>(b) * p.H + h) * p.dk * p.dv;
-    for (int idx = threadIdx.x; idx < p.dk * p.dv; idx += kThreads) {
-      const int d = idx / p.dv;
-      sp[idx] = st[d * ldv + idx - d * p.dv];
+    for (int idx = threadIdx.x; idx < dkt * dvt; idx += kThreads) {
+      const int d = idx / dvt, c = idx - d * dvt;
+      sp[static_cast<long long>(i0 + d) * p.dv + j0 + c] = st[d * ldv + c];
     }
   }
 }
 
 template <typename T, int NK, int NV>
 int launch(const Params& p, int B, cudaStream_t s) {
-  const size_t bytes = smem_bytes(p.dk, p.dv);
+  const int tk = simt_tile(p.dk), tv = simt_tile(p.dv);
+  const size_t bytes = smem_bytes(tk, tv);
   cudaError_t err = cudaFuncSetAttribute(gla_kernel<T, NK, NV>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(bytes));
   if (err != cudaSuccess) return static_cast<int>(err);
-  gla_kernel<T, NK, NV><<<static_cast<unsigned>(B * p.H), kThreads, bytes, s>>>(p);
+  const dim3 grid(static_cast<unsigned>(B * p.H), static_cast<unsigned>((p.dv + tv - 1) / tv),
+                  static_cast<unsigned>((p.dk + tk - 1) / tk));
+  gla_kernel<T, NK, NV><<<grid, kThreads, bytes, s>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
 int dispatch_f32(const Params& p, int B, cudaStream_t s) {
   if (p.dk <= 64 && p.dv <= 64) return launch<float, 4, 4>(p, B, s);
   return launch<float, 8, 8>(p, B, s);
+}
+
+// y = the sum of the dk tiles' f32 partials, in tile order, cast once:
+// ws (tiles, n) -> out (n). A grid-stride loop, one element a thread a step.
+template <typename T>
+__global__ void __launch_bounds__(256)
+gla_reduce_kernel(const float* __restrict__ ws, T* __restrict__ out, long long n, int tiles) {
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; i < n;
+       i += stride) {
+    float acc = ws[i];
+    for (int z = 1; z < tiles; ++z) acc += ws[z * n + i];
+    out[i] = from_f32<T>(acc);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -395,67 +451,80 @@ struct Layout {
   __device__ __forceinline__ __nv_bfloat16* s_lo(int i) const { return s_hi(i) + SE; }
 };
 
-// Copies chunk rows t0 .. t0 + C - 1 of q, k (all DKP columns), of v's
-// columns j0 .. j0 + NS - 1 and of log_a into one stage; rows >= S and
-// columns >= dk / dv are zero. VEC: 16-byte cp.async (dk, dv % 8 == 0 and
-// 16-byte aligned rows); else plain element loads.
-template <int DKP, bool VEC>
+// Copies chunk rows t0 .. t0 + C - 1 of q, k (all DKP columns of this
+// block's dk tile, dk of them live), of v's columns j0 .. j0 + NS - 1 and of
+// log_a into one stage; rows >= S and columns >= dk / dv are zero. VQK:
+// q, k and log_a as cp.async copies (16 bytes; 4 for log_a) issued by the
+// load threads (dk % 8 == 0 and 16-byte aligned rows), else plain element
+// loads by every thread; VV the same for v (dv % 8 == 0). The mLSTM's
+// v (dv = 1,025) takes element loads while its q and k are copied.
+template <int DKP, bool VQK, bool VV>
 __device__ __forceinline__ void load_stage(const Params& p, const __nv_bfloat16* qp,
                                            const __nv_bfloat16* kp, const __nv_bfloat16* vp,
                                            const float* ap, __nv_bfloat16* qs, __nv_bfloat16* ks,
-                                           __nv_bfloat16* vs, float* as, int t0, int j0) {
+                                           __nv_bfloat16* vs, float* as, int t0, int j0, int dk) {
+  static_assert(VQK || !VV, "v copied asynchronously needs q and k copied so too");
   constexpr int LDQ = DKP + 8, LDV = NS + 8;
   constexpr int QP = DKP / 8, VP = NS / 8;  // 16-byte pieces a row
   const int tid = threadIdx.x;
-  if (VEC) {
-    if (tid >= kLoadThreads) return;
+  const __nv_bfloat16 zero = __float2bfloat16(0.0f);
+  if (VQK) {
+    if (tid < kLoadThreads) {
 #pragma unroll
-    for (int idx = tid; idx < kC * QP; idx += kLoadThreads) {
-      const int r = idx / QP, c = (idx % QP) * 8, t = t0 + r;
-      const bool live = t < p.S && c < p.dk;
-      const long long off = static_cast<long long>(t) * p.q_ss + c;
-      const long long koff = static_cast<long long>(t) * p.k_ss + c;
-      cp_async16(smem_addr(qs + r * LDQ + c), live ? qp + off : qp, live ? 16 : 0);
-      cp_async16(smem_addr(ks + r * LDQ + c), live ? kp + koff : kp, live ? 16 : 0);
-    }
+      for (int idx = tid; idx < kC * QP; idx += kLoadThreads) {
+        const int r = idx / QP, c = (idx % QP) * 8, t = t0 + r;
+        const bool live = t < p.S && c < dk;
+        const long long off = static_cast<long long>(t) * p.q_ss + c;
+        const long long koff = static_cast<long long>(t) * p.k_ss + c;
+        cp_async16(smem_addr(qs + r * LDQ + c), live ? qp + off : qp, live ? 16 : 0);
+        cp_async16(smem_addr(ks + r * LDQ + c), live ? kp + koff : kp, live ? 16 : 0);
+      }
+      if (VV) {
 #pragma unroll
-    for (int idx = tid; idx < kC * VP; idx += kLoadThreads) {
-      const int r = idx / VP, c = (idx % VP) * 8, t = t0 + r;
-      const bool live = t < p.S && j0 + c < p.dv;
-      const long long off = static_cast<long long>(t) * p.v_ss + j0 + c;
-      cp_async16(smem_addr(vs + r * LDV + c), live ? vp + off : vp, live ? 16 : 0);
-    }
-    if (tid < kC) {
-      const int t = t0 + tid;
-      const bool live = t < p.S;
-      cp_async4(smem_addr(as + tid), live ? ap + static_cast<long long>(t) * p.a_ss : ap,
-                live ? 4 : 0);
+        for (int idx = tid; idx < kC * VP; idx += kLoadThreads) {
+          const int r = idx / VP, c = (idx % VP) * 8, t = t0 + r;
+          const bool live = t < p.S && j0 + c < p.dv;
+          const long long off = static_cast<long long>(t) * p.v_ss + j0 + c;
+          cp_async16(smem_addr(vs + r * LDV + c), live ? vp + off : vp, live ? 16 : 0);
+        }
+      }
+      if (tid < kC) {
+        const int t = t0 + tid;
+        const bool live = t < p.S;
+        cp_async4(smem_addr(as + tid), live ? ap + static_cast<long long>(t) * p.a_ss : ap,
+                  live ? 4 : 0);
+      }
     }
   } else {
-    const __nv_bfloat16 zero = __float2bfloat16(0.0f);
     for (int idx = tid; idx < kC * DKP; idx += kThreadsTC) {
       const int r = idx / DKP, c = idx % DKP, t = t0 + r;
-      const bool live = t < p.S && c < p.dk;
+      const bool live = t < p.S && c < dk;
       qs[r * LDQ + c] = live ? qp[static_cast<long long>(t) * p.q_ss + c] : zero;
       ks[r * LDQ + c] = live ? kp[static_cast<long long>(t) * p.k_ss + c] : zero;
-    }
-    for (int idx = tid; idx < kC * NS; idx += kThreadsTC) {
-      const int r = idx / NS, c = idx % NS, t = t0 + r;
-      const bool live = t < p.S && j0 + c < p.dv;
-      vs[r * LDV + c] = live ? vp[static_cast<long long>(t) * p.v_ss + j0 + c] : zero;
     }
     if (tid < kC) {
       const int t = t0 + tid;
       as[tid] = t < p.S ? ap[static_cast<long long>(t) * p.a_ss] : 0.0f;
     }
   }
+  if (!VV) {
+    for (int idx = tid; idx < kC * NS; idx += kThreadsTC) {
+      const int r = idx / NS, c = idx % NS, t = t0 + r;
+      const bool live = t < p.S && j0 + c < p.dv;
+      vs[r * LDV + c] = live ? vp[static_cast<long long>(t) * p.v_ss + j0 + c] : zero;
+    }
+  }
 }
 
-// Grid (B * H, ceil(dv / NS)), 128 threads. DKP (64 or 128) >= dk; NS
-// columns of dv a block. Fragment names follow the PTX ISA's
+// Grid (B * H, ceil(dv / NS), ceil(dk / 128)), 128 threads. DKP (64 or 128)
+// >= the block's dk tile (rows i0 .. i0 + dkt - 1 of dk); NS columns of dv a
+// block. SPLIT (dk > 128): y is this tile's f32 partial, written to ws, and
+// P enters P v as a bf16 hi + lo pair: the partial scores of the tiles may
+// cancel in the sum, so P rounded once a tile would err by 2^-9 of each
+// partial instead of the whole. Fragment names follow the PTX ISA's
 // m16n8k16 layout: g = lane / 4 is a fragment row, c4 = lane % 4 picks its
 // column pair.
-template <int DKP, bool VEC>
+template <int DKP, bool VQK, bool VV, bool SPLIT>
 __global__ void __launch_bounds__(kThreadsTC)
 gla_tc_kernel(const Params p) {
   constexpr int LDQ = DKP + 8, LDV = NS + 8;
@@ -470,11 +539,15 @@ gla_tc_kernel(const Params p) {
 
   const int b = blockIdx.x / p.H, h = blockIdx.x % p.H;
   const int j0 = blockIdx.y * NS;
-  const __nv_bfloat16* qp = static_cast<const __nv_bfloat16*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const __nv_bfloat16* kp = static_cast<const __nv_bfloat16*>(p.k) + b * p.k_sb + h * p.k_sh;
+  const int i0 = blockIdx.z * kMaxD, dkt = min(DKP, p.dk - i0);
+  const __nv_bfloat16* qp =
+      static_cast<const __nv_bfloat16*>(p.q) + b * p.q_sb + h * p.q_sh + i0;
+  const __nv_bfloat16* kp =
+      static_cast<const __nv_bfloat16*>(p.k) + b * p.k_sb + h * p.k_sh + i0;
   const __nv_bfloat16* vp = static_cast<const __nv_bfloat16*>(p.v) + b * p.v_sb + h * p.v_sh;
   const float* ap = p.a + b * p.a_sb + h * p.a_sh;
   __nv_bfloat16* op = static_cast<__nv_bfloat16*>(p.out);
+  float* wp = SPLIT ? p.ws + static_cast<long long>(blockIdx.z) * gridDim.x * p.S * p.dv : nullptr;
 
   // This warp's state rows d = 16 (warp + 4 mt) + {g, g + 8}, columns
   // j0 + 8 nt + 2 c4 + {0, 1}: the update's accumulator fragments.
@@ -487,7 +560,7 @@ gla_tc_kernel(const Params p) {
       for (int e = 0; e < 4; ++e) st[mt][nt][e] = 0.0f;
 
   const int n_chunks = (p.S + kC - 1) / kC;
-  load_stage<DKP, VEC>(p, qp, kp, vp, ap, m.q(0), m.k(0), m.v(0), m.a(0), 0, j0);
+  load_stage<DKP, VQK, VV>(p, qp, kp, vp, ap, m.q(0), m.k(0), m.v(0), m.a(0), 0, j0, dkt);
   cp_commit();
 
   const int row0 = 16 * warp;  // this warp's 16 rows of the chunk
@@ -496,8 +569,8 @@ gla_tc_kernel(const Params p) {
     cp_wait_all();
     __syncthreads();  // chunk c has landed; every warp is done with chunk c - 1
     if (c + 1 < n_chunks) {
-      load_stage<DKP, VEC>(p, qp, kp, vp, ap, m.q(cur ^ 1), m.k(cur ^ 1), m.v(cur ^ 1),
-                               m.a(cur ^ 1), t0 + kC, j0);
+      load_stage<DKP, VQK, VV>(p, qp, kp, vp, ap, m.q(cur ^ 1), m.k(cur ^ 1), m.v(cur ^ 1),
+                                   m.a(cur ^ 1), t0 + kC, j0, dkt);
     }
     cp_commit();
     const __nv_bfloat16* qs = m.q(cur);
@@ -545,8 +618,10 @@ gla_tc_kernel(const Params p) {
       }
     }
     // P = scores o D (s <= t, masked before the exp), rounded to bf16 as the
-    // A fragments of P v: k16 step kk2 takes n8 tiles 2 kk2 and 2 kk2 + 1.
+    // A fragments of P v: k16 step kk2 takes n8 tiles 2 kk2 and 2 kk2 + 1;
+    // under SPLIT what the rounding left (P - bf16(P)) as a second fragment.
     uint32_t pa[kC / 16][4];
+    uint32_t pl[SPLIT ? kC / 16 : 1][4];
 #pragma unroll
     for (int kk2 = 0; kk2 < kC / 16; ++kk2) {
       if (kk2 > warp) break;
@@ -565,6 +640,13 @@ gla_tc_kernel(const Params p) {
       pa[kk2][1] = pack_bf16(w[0][2], w[0][3]);
       pa[kk2][2] = pack_bf16(w[1][0], w[1][1]);
       pa[kk2][3] = pack_bf16(w[1][2], w[1][3]);
+      if constexpr (SPLIT) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float2 h = unpack_bf16(pa[kk2][e]);
+          pl[kk2][e] = pack_bf16(w[e / 2][2 * (e % 2)] - h.x, w[e / 2][2 * (e % 2) + 1] - h.y);
+        }
+      }
     }
 
     // y = e^{L_t} (q S_in) + P v
@@ -609,13 +691,27 @@ gla_tc_kernel(const Params p) {
                                 (mi / 2) * 8));
         mma(y[2 * np], pa[kk2], vb[0], vb[1]);
         mma(y[2 * np + 1], pa[kk2], vb[2], vb[3]);
+        if constexpr (SPLIT) {
+          mma(y[2 * np], pl[kk2], vb[0], vb[1]);
+          mma(y[2 * np + 1], pl[kk2], vb[2], vb[3]);
+        }
       }
     }
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
       const int t = t0 + row0 + g + 8 * half;
       if (t >= p.S) continue;
-      __nv_bfloat16* orow = op + ((static_cast<long long>(b) * p.S + t) * p.H + h) * p.dv;
+      const long long row = ((static_cast<long long>(b) * p.S + t) * p.H + h) * p.dv;
+      if constexpr (SPLIT) {  // this dk tile's f32 partial
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          const int j = j0 + 8 * nt + 2 * c4;
+          if (j < p.dv) wp[row + j] = y[nt][2 * half];
+          if (j + 1 < p.dv) wp[row + j + 1] = y[nt][2 * half + 1];
+        }
+        continue;
+      }
+      __nv_bfloat16* orow = op + row;
 #pragma unroll
       for (int nt = 0; nt < NT; ++nt) {
         const int j = j0 + 8 * nt + 2 * c4;
@@ -701,35 +797,45 @@ gla_tc_kernel(const Params p) {
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
         const int d = 16 * (warp + kWarps * mt) + g + 8 * half;
-        if (d >= p.dk) continue;
+        if (d >= dkt) continue;
+        const long long srow = static_cast<long long>(i0 + d) * p.dv;
 #pragma unroll
         for (int nt = 0; nt < NT; ++nt) {
           const int j = j0 + 8 * nt + 2 * c4;
-          if (j < p.dv) sp[static_cast<long long>(d) * p.dv + j] = st[mt][nt][2 * half];
-          if (j + 1 < p.dv) sp[static_cast<long long>(d) * p.dv + j + 1] = st[mt][nt][2 * half + 1];
+          if (j < p.dv) sp[srow + j] = st[mt][nt][2 * half];
+          if (j + 1 < p.dv) sp[srow + j + 1] = st[mt][nt][2 * half + 1];
         }
       }
     }
   }
 }
 
-template <int DKP, bool VEC>
+template <int DKP, bool VQK, bool VV, bool SPLIT>
 int launch(const Params& p, int B, cudaStream_t s) {
   constexpr size_t most = smem_bytes(DKP, false);
   static_assert(most <= kSmemLimit, "GLA tensor-core tiles exceed shared memory");
-  cudaError_t err = cudaFuncSetAttribute(gla_tc_kernel<DKP, VEC>,
+  cudaError_t err = cudaFuncSetAttribute(gla_tc_kernel<DKP, VQK, VV, SPLIT>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(most));
   if (err != cudaSuccess) return static_cast<int>(err);
   const size_t bytes = smem_bytes(DKP, p.S <= kC);
-  const dim3 grid(static_cast<unsigned>(B * p.H), static_cast<unsigned>((p.dv + NS - 1) / NS));
-  gla_tc_kernel<DKP, VEC><<<grid, kThreadsTC, bytes, s>>>(p);
+  const dim3 grid(static_cast<unsigned>(B * p.H), static_cast<unsigned>((p.dv + NS - 1) / NS),
+                  static_cast<unsigned>((p.dk + kMaxD - 1) / kMaxD));
+  gla_tc_kernel<DKP, VQK, VV, SPLIT><<<grid, kThreadsTC, bytes, s>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
+// Up to dk = 128 the copies are all cp.async or all element loads; past it
+// (the split) q and k are copied whenever they allow, whatever v allows.
 template <int DKP>
-int dispatch_vec(const Params& p, int B, int vec, cudaStream_t s) {
-  return vec ? launch<DKP, true>(p, B, s) : launch<DKP, false>(p, B, s);
+int dispatch_vec(const Params& p, int B, int vec_qk, int vec_v, cudaStream_t s) {
+  if (vec_qk && vec_v) return launch<DKP, true, true, false>(p, B, s);
+  return launch<DKP, false, false, false>(p, B, s);
+}
+
+int dispatch_split(const Params& p, int B, int vec_qk, int vec_v, cudaStream_t s) {
+  if (!vec_qk) return launch<128, false, false, true>(p, B, s);
+  return vec_v ? launch<128, true, true, true>(p, B, s) : launch<128, true, false, true>(p, B, s);
 }
 
 constexpr int pad_dk(int dk) { return dk <= 64 ? 64 : 128; }
@@ -744,26 +850,50 @@ extern "C" {
 // given (batch, seq, head) strides in elements (a head stride may be 0) and
 // a contiguous last axis; q, k, v bf16 when is_bf16 else f32. out:
 // (B, S, H, dv) contiguous in q's type; state: (B, H, dk, dv) f32
-// contiguous, or null. 1 <= dk, dv <= 128; B * H < 2^31. bf16 takes the
-// tensor-core kernel, ceil(dv / 64) blocks along dv, with 16-byte copies
-// when vec (dk, dv % 8 == 0, rows 16-byte aligned); f32 the SIMT kernel
-// (vec unused).
+// contiguous, or null; B * H < 2^31. bf16 takes the tensor-core kernel,
+// ceil(dv / 64) blocks along dv and ceil(dk / 128) along dk, with 16-byte
+// copies of q and k when vec_qk (dk % 8 == 0, rows 16-byte aligned) and of
+// v when vec_v (the same for dv); f32 the SIMT kernel, tiles of 128 along
+// each (vec_qk, vec_v unused). Past dk = 128 (more than
+// one dk tile) the blocks write f32 partials to ws, (ceil(dk / 128), B, S,
+// H, dv) contiguous, not out: repro_gla_reduce then sums them into out.
+// Up to dk = 128, ws must be null.
 int repro_gla(const void* q, const void* k, const void* v, const float* log_a, void* out,
-              float* state, int B, int S, int H, int dk, int dv,
+              float* state, float* ws, int B, int S, int H, int dk, int dv,
               long long q_sb, long long q_ss, long long q_sh,
               long long k_sb, long long k_ss, long long k_sh,
               long long v_sb, long long v_ss, long long v_sh,
               long long a_sb, long long a_ss, long long a_sh,
-              int is_bf16, int vec, void* stream) {
-  if (dk < 1 || dk > kMaxD || dv < 1 || dv > kMaxD) {
+              int is_bf16, int vec_qk, int vec_v, void* stream) {
+  const int dk_tiles = (dk + kMaxD - 1) / kMaxD;
+  if (dk < 1 || dv < 1 || dk_tiles > kMaxGridYZ || (dv + tc::NS - 1) / tc::NS > kMaxGridYZ ||
+      (dk_tiles > 1) != (ws != nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  Params p{q, k, v, log_a, out, state, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
+  Params p{q, k, v, log_a, out, state, ws, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
            a_sb, a_ss, a_sh, H, S, dk, dv};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (!is_bf16) return dispatch_f32(p, B, s);
-  return tc::pad_dk(dk) == 64 ? tc::dispatch_vec<64>(p, B, vec, s)
-                              : tc::dispatch_vec<128>(p, B, vec, s);
+  if (dk_tiles > 1) return tc::dispatch_split(p, B, vec_qk, vec_v, s);
+  return tc::pad_dk(dk) == 64 ? tc::dispatch_vec<64>(p, B, vec_qk, vec_v, s)
+                              : tc::dispatch_vec<128>(p, B, vec_qk, vec_v, s);
+}
+
+// out (n elements, bf16 when is_bf16 else f32) = the sum over the tiles of
+// ws (tiles, n) f32, in tile order.
+int repro_gla_reduce(const float* ws, void* out, long long n, int tiles, int is_bf16,
+                     void* stream) {
+  if (n < 1 || tiles < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long want = (n + 255) / 256;
+  const unsigned blocks = static_cast<unsigned>(want < kReduceBlocks ? want : kReduceBlocks);
+  if (is_bf16) {
+    gla_reduce_kernel<__nv_bfloat16><<<blocks, 256, 0, s>>>(
+        ws, static_cast<__nv_bfloat16*>(out), n, tiles);
+  } else {
+    gla_reduce_kernel<float><<<blocks, 256, 0, s>>>(ws, static_cast<float*>(out), n, tiles);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 // Dynamic shared memory of the tensor-core kernel for dk and S.

@@ -9,8 +9,14 @@ inputs take the tensor-core kernel (``mma.sync`` chunk products, the
 state in registers, dv split across blocks, ``cp.async`` double
 buffering; P rounded to bf16 before P v); float32 inputs take the SIMT
 kernel, the f32 parity route. Either can write the state after the last
-chunk (``return_state=True``), which ``mamba2_prefill`` keeps as its
-decode cache.
+chunk (``return_state=True``), which ``mamba2_prefill`` and
+``mlstm_prefill`` keep as their decode caches.
+
+Past dk = 128 (mLSTM: dk 1,024, dv 1,025) the state is split along dk as
+well (:func:`gla_plan`): each block's y is a partial over its 128 rows
+of dk, written in f32 to a workspace the wrapper allocates, and a second
+kernel sums the partials in tile order and casts once
+(``LAUNCHES["gla_reduce"]``). Up to dk = 128 it is one launch, as before.
 
 The kernels read (B, S, H, ·) tensors through their strides, so mamba2's
 q and k (one group expanded over the heads, head stride 0) are never
@@ -18,7 +24,7 @@ materialized, and mask the ragged tail as identity steps. A CPU tensor
 takes the plain version (:func:`repro_torch.kernels.ref.gla_plain`); a
 CUDA tensor launches a kernel or raises. ``LAUNCHES["gla_tc"]`` counts
 the tensor-core kernel's launches, ``LAUNCHES["gla"]`` the SIMT
-kernel's, on the CUDA route.
+kernel's and ``LAUNCHES["gla_reduce"]`` the reduction's, on the CUDA route.
 """
 from __future__ import annotations
 
@@ -37,16 +43,18 @@ from repro_torch.kernels.wire import (
     tc_vector_loads,
 )
 
-LAUNCHES: Dict[str, int] = {"gla": 0, "gla_tc": 0}
+LAUNCHES: Dict[str, int] = {"gla": 0, "gla_tc": 0, "gla_reduce": 0}
 
 CHUNK = 64  # the kernels' chunk length (csrc/gla.cu kC)
-MAX_DIM = 128  # dk and dv
+MAX_DIM = 128  # rows of dk a block (both kernels), columns of dv a SIMT block (kMaxD)
+MAX_GRID_YZ = 65_535  # grid y (dv slices) and z (dk tiles)
 SMEM_LIMIT = 232_448  # dynamic shared memory a block may use on the H100
 TC_COLS = 64  # columns of dv a tensor-core block takes (csrc/gla.cu tc::NS)
 TC_WARPS = 4
 _c_void_p, _c_int, _c_ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
-    "repro_gla": [_c_void_p] * 6 + [_c_int] * 5 + [_c_ll] * 12 + [_c_int] * 2 + [_c_void_p],
+    "repro_gla": [_c_void_p] * 7 + [_c_int] * 5 + [_c_ll] * 12 + [_c_int] * 3 + [_c_void_p],
+    "repro_gla_reduce": [_c_void_p, _c_void_p, _c_ll, _c_int, _c_int, _c_void_p],
     "repro_gla_tc_smem_bytes": [_c_int, _c_int],
 }
 DTYPES = (torch.float32, torch.bfloat16)
@@ -83,23 +91,40 @@ def tc_smem_bytes(dk: int, S: Optional[int] = None) -> int:
 
 class Plan(NamedTuple):
     route: str  # "tc" (bf16, tensor cores) or "simt" (f32)
-    dv_cols: int  # columns of dv a block (tc), else dv
+    dk_rows: int  # rows of dk a block (the last tile may hold fewer)
+    dk_tiles: int  # blocks along dk
+    dv_cols: int  # columns of dv a block (the last slice may hold fewer)
     slices: int  # blocks along dv
-    grid: tuple  # (B * H, slices)
+    grid: tuple  # (B * H, slices, dk_tiles)
     smem: int  # dynamic shared memory, bytes (tc)
+    workspace: int  # bytes of the f32 partial-y workspace (0: one dk tile, no reduction)
 
 
 def gla_plan(B: int, H: int, dk: int, dv: int, dtype: torch.dtype,
              S: Optional[int] = None) -> Plan:
     """The launch: bf16 takes the tensor-core kernel, ``TC_COLS`` columns of
     dv a block (one block a (batch, head) for dv <= 64, two past it); f32
-    the SIMT kernel, one block a (batch, head). Splitting mamba2's dv of 64
-    into two blocks lost on the card (PERF.md): each slice repeats
-    q kᵀ, P and the copies of q and k."""
+    the SIMT kernel, up to ``MAX_DIM`` columns a block. Splitting mamba2's
+    dv of 64 into two blocks lost on the card (PERF.md): each slice repeats
+    q kᵀ, P and the copies of q and k. Either takes ``MAX_DIM`` rows of dk
+    a block: past that, ``dk_tiles`` blocks each write an f32 partial of y
+    to a (dk_tiles, B, S, H, dv) workspace that the reduction sums (S
+    rows of it; 0 when S is not given). Raises for a grid the card cannot
+    launch."""
+    dk_rows = min(dk, MAX_DIM)
+    dk_tiles = -(-dk // MAX_DIM)
     if dtype == torch.float32:
-        return Plan("simt", dv, 1, (B * H, 1), 0)
-    slices = -(-dv // TC_COLS)
-    return Plan("tc", TC_COLS, slices, (B * H, slices), tc_smem_bytes(dk, S))
+        dv_cols, smem = min(dv, MAX_DIM), 0
+    else:
+        dv_cols, smem = TC_COLS, tc_smem_bytes(dk, S)
+    slices = -(-dv // dv_cols)
+    if B * H >= 2 ** 31 or slices > MAX_GRID_YZ or dk_tiles > MAX_GRID_YZ:
+        raise ValueError(f"gla: no launch for B * H = {B * H}, dk = {dk}, dv = {dv} (grid "
+                         f"({B * H}, {slices}, {dk_tiles}) past the card's limits)")
+    workspace = dk_tiles * B * (S or 0) * H * dv * 4 if dk_tiles > 1 else 0
+    route = "simt" if dtype == torch.float32 else "tc"
+    return Plan(route, dk_rows, dk_tiles, dv_cols, slices, (B * H, slices, dk_tiles), smem,
+                workspace)
 
 
 def gla(
@@ -133,8 +158,8 @@ def gla(
         raise ValueError(f"log_a must be a float tensor, got {log_a.dtype}")
     if any(t.device != q.device for t in (k, v, log_a)):
         raise ValueError("q, k, v and log_a must be on one device")
-    if not (1 <= dk <= MAX_DIM and 1 <= dv <= MAX_DIM):
-        raise ValueError(f"gla takes dk, dv <= {MAX_DIM}, got {dk}, {dv}")
+    if dk < 1 or dv < 1:
+        raise ValueError(f"gla takes dk, dv >= 1, got {dk}, {dv}")
     plan = gla_plan(B, H, dk, dv, q.dtype, S)
     q, k, v = _unit_last(q), _unit_last(k), _unit_last(v)
     a = log_a.float()
@@ -143,11 +168,18 @@ def gla(
         (B, H, dk, dv), dtype=torch.float32, device=q.device) if return_state else None
     if out.numel():
         tc = plan.route == "tc"
+        ws = (torch.empty((plan.workspace // 4,), dtype=torch.float32, device=q.device)
+              if plan.workspace else None)
+        stream = torch.cuda.current_stream(q.device).cuda_stream
         err = _lib().repro_gla(
-            _ptr(q), _ptr(k), _ptr(v), _ptr(a), _ptr(out), _ptr(state), B, S, H, dk, dv,
-            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *a.stride(),
-            int(tc), int(tc and tc_vector_loads(q, k, v)),
-            torch.cuda.current_stream(q.device).cuda_stream)
+            _ptr(q), _ptr(k), _ptr(v), _ptr(a), _ptr(out), _ptr(state), _ptr(ws), B, S, H,
+            dk, dv, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *a.stride(),
+            int(tc), int(tc and tc_vector_loads(q, k)), int(tc and tc_vector_loads(v)), stream)
         _raise_on(err, "gla (tensor cores)" if tc else "gla")
         LAUNCHES["gla_tc" if tc else "gla"] += 1
+        if ws is not None:
+            err = _lib().repro_gla_reduce(_ptr(ws), _ptr(out), out.numel(), plan.dk_tiles,
+                                          int(tc), stream)
+            _raise_on(err, "gla_reduce")
+            LAUNCHES["gla_reduce"] += 1
     return (out, state) if return_state else out

@@ -9,7 +9,9 @@ The port of ``repro/launch/serve_backbone.py``, with its flags plus
 Without ``--full`` it serves the reduced config (2 layers, f32). Weights
 and variational parameters are random, drawn from seed 0; so are the
 stub patch embeddings a vision config (qwen2-vl-2b) prefixes to each
-prompt, whose tokens count in the cache's length. Greedy
+prompt, whose tokens count in the cache's length, and the stub frame
+embeddings (``encoder_seq_len`` of them) an encoder-decoder config
+(whisper-base) encodes once in the prefill. Greedy
 decoding (``--temperature 0``, the default) is deterministic; sampling
 draws from a torch generator (not JAX's threefry stream).
 """
@@ -51,8 +53,9 @@ def serve(cfg: ArchConfig, *, batch: int, prompt_len: int, gen: int, silos: int,
           device: torch.device, temperature: float = 0.0) -> ServeRun:
     """Random weights from seed 0, one prefill of a random prompt (after
     ``cfg.num_vision_tokens`` random f32 patch embeddings where the config
-    has a vision prefix), then ``gen - 1`` decode steps, timed on the host
-    clock (each phase ends in a device synchronize)."""
+    has a vision prefix; with (B, ``encoder_seq_len``, D) random f32 frames
+    for an encoder-decoder), then ``gen - 1`` decode steps, timed on the
+    host clock (each phase ends in a device synchronize)."""
     if batch % silos:
         raise ValueError(f"batch {batch} must be a multiple of silos {silos}")
     g = generator((SEED, 0), device)
@@ -64,6 +67,9 @@ def serve(cfg: ArchConfig, *, batch: int, prompt_len: int, gen: int, silos: int,
     decode = S.make_serve_decode(cfg, silos)
     prompt = {"tokens": torch.randint(0, cfg.vocab_size, (batch, prompt_len), generator=g,
                                       device=device)}
+    if cfg.is_encoder_decoder:
+        prompt["frames"] = torch.randn((batch, cfg.encoder_seq_len, cfg.d_model), generator=g,
+                                       device=device)
     if cfg.num_vision_tokens:
         prompt["vision"] = torch.randn((batch, cfg.num_vision_tokens, cfg.d_model),
                                        generator=g, device=device)

@@ -19,7 +19,8 @@ has no multi-process training (its multi-process federation is
 prints the reference's JSON. Weights come from seed 0 and the token
 stream from seed 1, on torch generators (not the reference's numbers).
 A vision config (qwen2-vl-2b) gets f32 stub patch embeddings with each
-batch, drawn from seed (1, step).
+batch, and an encoder-decoder (whisper-base) f32 stub frame embeddings,
+each drawn from seed (1, step).
 """
 from __future__ import annotations
 
@@ -58,6 +59,13 @@ def vision_inputs(cfg: ArchConfig, batch: int, step: int, device) -> torch.Tenso
     """The stub vision encoder's patch embeddings of one step's batch:
     (batch, num_vision_tokens, d_model) f32 normals from seed (1, step)."""
     return torch.randn((batch, cfg.num_vision_tokens, cfg.d_model),
+                       generator=generator((DATA_SEED, step), device), device=device)
+
+
+def frame_inputs(cfg: ArchConfig, batch: int, step: int, device) -> torch.Tensor:
+    """The stub audio frontend's frame embeddings of one step's batch:
+    (batch, encoder_seq_len, d_model) f32 normals from seed (1, step)."""
+    return torch.randn((batch, cfg.encoder_seq_len, cfg.d_model),
                        generator=generator((DATA_SEED, step), device), device=device)
 
 
@@ -158,6 +166,8 @@ def main(argv=None):
         for i in range(args.steps):
             step = torch.from_numpy(toks[i]).to(device=device, dtype=torch.long)
             batch = {"tokens": step[:, :-1], "labels": step[:, 1:]}
+            if cfg.is_encoder_decoder:
+                batch["frames"] = frame_inputs(cfg, args.batch, i, device)
             if cfg.num_vision_tokens:
                 batch["vision"] = vision_inputs(cfg, args.batch, i, device)
             yield batch

@@ -20,6 +20,12 @@ chooses by mode, never on a failure:
 Decode attends one query over the cache with two ``torch`` matmuls
 (einsum), as the JAX package computes it outside any kernel; GQA is a
 reshape of the query heads, so the cache is never repeated.
+
+Whisper's encoder attends without a mask (:func:`attention_encode` in the
+serve modes, flash with ``causal=False`` and no cache), and each decoder
+block attends to the encoder's output (:func:`cross_attention`: no rope;
+``full_attention`` in training as the reference, the flash kernel in
+prefill and decode, Sq = prompt or 1 against Skv = 1,500).
 """
 from __future__ import annotations
 
@@ -168,6 +174,16 @@ def attention_prefill(params, cfg, x, positions):
     return y, {"k": k, "v": v, "pos": torch.tensor(S, dtype=torch.int32, device=x.device)}
 
 
+def attention_encode(params, cfg, x, positions):
+    """Bidirectional self-attention over a full sequence through the flash
+    kernel (``causal=False``), with no cache: the encoder's serve mode."""
+    check_port_supported(cfg)
+    B, S, _ = x.shape
+    q, k, v = _project_qkv(params, cfg, x, positions)
+    out = flash_attention(q, k, v, causal=False)
+    return out.reshape(B, S, cfg.num_heads * cfg.head_dim_) @ params["wo"]
+
+
 def init_kv_cache(cfg, batch: int, max_len: int, dtype: torch.dtype, device) -> dict:
     hd = cfg.head_dim_
     window = cfg.sliding_window
@@ -214,3 +230,39 @@ def attention_decode(params, cfg, x, cache, positions=None):
     out = torch.einsum("bkgqs,bskd->bqkgd", p, v)
     y = out.reshape(B, 1, H * hd) @ params["wo"]
     return y, {"k": k, "v": v, "pos": pos + 1}
+
+
+# ---------------------------------------------------------------------------
+# Cross-attention (whisper decoder)
+# ---------------------------------------------------------------------------
+
+def cross_attn_init(gen: torch.Generator, cfg):
+    hd = cfg.head_dim_
+    dtype = dtype_of(cfg)
+    return {
+        "wq": dense_init(gen, cfg.d_model, cfg.num_heads * hd, dtype),
+        "wk": dense_init(gen, cfg.d_model, cfg.num_kv_heads * hd, dtype),
+        "wv": dense_init(gen, cfg.d_model, cfg.num_kv_heads * hd, dtype),
+        "wo": dense_init(gen, cfg.num_heads * hd, cfg.d_model, dtype),
+    }
+
+
+def cross_attention(params, cfg, x, memory, mode: str = "train"):
+    """x: (B, Sq, D) queries; memory: (B, Skv, D) encoder states. K and V
+    are projected from ``memory`` at every call (decode included, as the
+    reference does); no rope. Mode ``"train"`` expands them to the heads
+    and runs :func:`full_attention` (differentiable); the serve modes pass
+    the unexpanded heads to the flash kernel, ``causal=False``."""
+    check_port_supported(cfg)
+    B, Sq, _ = x.shape
+    Skv = memory.shape[1]
+    hd = cfg.head_dim_
+    q = (x @ params["wq"]).reshape(B, Sq, cfg.num_heads, hd)
+    k = (memory @ params["wk"]).reshape(B, Skv, cfg.num_kv_heads, hd)
+    v = (memory @ params["wv"]).reshape(B, Skv, cfg.num_kv_heads, hd)
+    if mode == "train":
+        k, v = _repeat_kv(k, cfg.num_heads), _repeat_kv(v, cfg.num_heads)
+        out = full_attention(q, k, v, causal=False)
+    else:
+        out = flash_attention(q, k, v, causal=False)
+    return out.reshape(B, Sq, cfg.num_heads * hd) @ params["wo"]

@@ -3,10 +3,15 @@
 Block kinds: ``attn`` (per layer, or zamba2's ONE shared attention + MLP
 block applied every ``hybrid_attn_period``-th layer), its feed-forward a
 SwiGLU MLP or the MoE block (:mod:`~repro_torch.models.backbone.moe`:
-capacity routing in prefill and training, every expert in decode), and
-``mamba2``. Qwen2-VL prepends projected stub patch embeddings
-(``batch["vision"]``) and rotates with M-RoPE positions. mLSTM, sLSTM and
-enc-dec (whisper) raise.
+capacity routing in prefill and training, every expert in decode),
+``mamba2``, and xLSTM's ``mlstm`` and ``slstm``
+(:mod:`~repro_torch.models.backbone.xlstm`; the unit [mLSTM x 7, sLSTM]).
+Qwen2-VL prepends projected stub patch embeddings (``batch["vision"]``)
+and rotates with M-RoPE positions. Whisper (enc-dec) runs a bidirectional
+encoder over stub frame embeddings (``batch["frames"]``, :func:`encode`)
+and cross-attention to its output in each decoder block; prefill keeps
+the encoder output as ``caches["memory"]`` and every decode step projects
+the cross K/V from it again, as the reference does.
 
 Parameters keep the JAX layout, so a JAX parameter tree converts leaf by
 leaf (:func:`repro_torch.convert.backbone_params_from_jax`): the layer list
@@ -22,7 +27,8 @@ Three entry modes share the block code:
 
 The mode chooses the ops, never a failure. Prefill and decode serve
 through the kernels (flash attention, GLA, RMSNorm: CUDA on the card),
-which have no backward. Mode ``"train"`` is differentiable: it runs the
+which have no backward; the encoder runs in prefill (flash with
+``causal=False``). Mode ``"train"`` is differentiable: it runs the
 counterparts of the jnp functions the JAX package trains through
 (``use_pallas`` is False by default there) — ``attention_block``
 (``full_attention`` / ``chunked_attention``), ``mamba2_block``
@@ -40,8 +46,11 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.models.backbone.attention import (
     attention_block,
     attention_decode,
+    attention_encode,
     attention_prefill,
     attn_init,
+    cross_attention,
+    cross_attn_init,
 )
 from repro_torch.models.backbone.config import ArchConfig, check_port_supported
 from repro_torch.models.backbone.layers import (
@@ -64,20 +73,32 @@ from repro_torch.models.backbone.ssm import (
     mamba2_init,
     mamba2_prefill,
 )
+from repro_torch.models.backbone.xlstm import (
+    mlstm_block,
+    mlstm_decode,
+    mlstm_init,
+    mlstm_prefill,
+    slstm_block,
+    slstm_decode,
+    slstm_init,
+    slstm_prefill,
+)
 from repro_torch.tree import tree_flatten, tree_map, tree_unflatten
 
 PyTree = Any
 
-PORTED_KINDS = ("attn", "mamba2")
+PORTED_KINDS = ("attn", "mamba2", "mlstm", "slstm")
+# (init, train, prefill, decode) of each recurrent block kind
+_MIXERS = {"mamba2": (mamba2_init, mamba2_block, mamba2_prefill, mamba2_decode),
+           "mlstm": (mlstm_init, mlstm_block, mlstm_prefill, mlstm_decode),
+           "slstm": (slstm_init, slstm_block, slstm_prefill, slstm_decode)}
 
 
 def _check_arch(cfg: ArchConfig) -> None:
     check_port_supported(cfg)
-    missing = [k for k in set(cfg.block_pattern) if k not in PORTED_KINDS]
-    if missing or cfg.is_encoder_decoder:
-        raise NotImplementedError(
-            f"{cfg.name}: the port's backbone has attention (dense, GQA, MoE, M-RoPE "
-            f"with a vision prefix) and mamba2 blocks (no mLSTM/sLSTM or enc-dec yet)")
+    missing = sorted(k for k in set(cfg.block_pattern) if k not in PORTED_KINDS)
+    if missing:
+        raise NotImplementedError(f"{cfg.name}: block kinds {missing} are not in the port")
 
 
 # ---------------------------------------------------------------------------
@@ -94,7 +115,10 @@ def unit_structure(cfg: ArchConfig) -> Tuple[Tuple[str, ...], int, Tuple[str, ..
     return pattern[:period], n_units, pattern[n_units * period:]
 
 
-def _block_init(gen: torch.Generator, cfg: ArchConfig, kind: str) -> PyTree:
+def _block_init(gen: torch.Generator, cfg: ArchConfig, kind: str,
+                decoder: bool = False) -> PyTree:
+    """One block's parameters; a whisper decoder block (``decoder``) adds
+    the cross-attention and its norm."""
     dtype, dev = dtype_of(cfg), gen.device
     if kind == "attn":
         if cfg.arch_type == "hybrid" and cfg.shared_attn:
@@ -109,10 +133,13 @@ def _block_init(gen: torch.Generator, cfg: ArchConfig, kind: str) -> PyTree:
             p["moe"] = moe_init(gen, cfg)
         elif cfg.d_ff:
             p["mlp"] = mlp_init(gen, cfg.d_model, cfg.d_ff, dtype)
+        if decoder and cfg.is_encoder_decoder:
+            p["norm_x"] = rmsnorm_init(cfg.d_model, dtype, dev)
+            p["xattn"] = cross_attn_init(gen, cfg)
         return p
-    if kind == "mamba2":
-        return {"norm1": rmsnorm_init(cfg.d_model, dtype, dev), "mixer": mamba2_init(gen, cfg)}
-    raise NotImplementedError(f"block kind {kind!r} is not ported yet")
+    if kind in _MIXERS:
+        return {"norm1": rmsnorm_init(cfg.d_model, dtype, dev), "mixer": _MIXERS[kind][0](gen, cfg)}
+    raise NotImplementedError(f"block kind {kind!r} is not in the port")
 
 
 def init_params(gen: torch.Generator, cfg: ArchConfig) -> PyTree:
@@ -127,21 +154,32 @@ def init_params(gen: torch.Generator, cfg: ArchConfig) -> PyTree:
     }
     if not cfg.tie_embeddings:
         params["lm_head"] = dense_init(gen, cfg.d_model, cfg.vocab_size, dtype)
+    decoder = cfg.is_encoder_decoder
     params["units"] = {}
     for s, kind in enumerate(unit):
-        blocks = [_block_init(gen, cfg, kind) for _ in range(n_units)]
-        params["units"][f"slot{s}"] = tree_map(lambda *xs: torch.stack(xs), *blocks)
-        del blocks
-    params["tail"] = {f"layer{i}": _block_init(gen, cfg, kind) for i, kind in enumerate(tail)}
+        params["units"][f"slot{s}"] = _stacked_init(gen, cfg, kind, n_units, decoder)
+    params["tail"] = {f"layer{i}": _block_init(gen, cfg, kind, decoder)
+                      for i, kind in enumerate(tail)}
     if cfg.arch_type == "hybrid" and cfg.shared_attn:
         shared = {"attn": attn_init(gen, cfg), "norm2": rmsnorm_init(cfg.d_model, dtype, dev)}
         if cfg.d_ff:
             shared["mlp"] = mlp_init(gen, cfg.d_model, cfg.d_ff, dtype)
         params["shared_attn"] = shared
+    if cfg.is_encoder_decoder:
+        params["encoder"] = {
+            "blocks": _stacked_init(gen, cfg, "attn", cfg.num_encoder_layers, False),
+            "final_norm": rmsnorm_init(cfg.d_model, dtype, dev),
+        }
     if cfg.num_vision_tokens:
         # Projector from the (stubbed) vision encoder's embedding space.
         params["vision_proj"] = dense_init(gen, cfg.d_model, cfg.d_model, dtype)
     return params
+
+
+def _stacked_init(gen, cfg, kind, n, decoder):
+    """``n`` blocks of ``kind``, each leaf stacked on a leading axis."""
+    blocks = [_block_init(gen, cfg, kind, decoder) for _ in range(n)]
+    return tree_map(lambda *xs: torch.stack(xs), *blocks)
 
 
 def param_count(params: PyTree) -> int:
@@ -154,9 +192,11 @@ def param_count(params: PyTree) -> int:
 # Block application (shared across modes)
 # ---------------------------------------------------------------------------
 
-def _apply_block(p, shared, cfg, kind, x, positions, mode, cache):
+def _apply_block(p, shared, cfg, kind, x, positions, mode, cache, memory=None, causal=True):
     """Returns (x, new_cache, aux_loss); the aux loss is the float 0.0 for a
-    block without MoE (no device op)."""
+    block without MoE (no device op). ``memory`` (whisper's encoder output)
+    adds the cross-attention after the self-attention; ``causal=False``
+    (the encoder) attends both ways and keeps no cache."""
     aux = 0.0
     new_cache = cache
     norm = rmsnorm_train if mode == "train" else rmsnorm
@@ -164,16 +204,21 @@ def _apply_block(p, shared, cfg, kind, x, positions, mode, cache):
         attn_p = shared if shared is not None else p
         h = norm(x, p["norm1"], cfg.norm_eps)
         if mode == "train":
-            y = attention_block(attn_p["attn"], cfg, h, positions)
+            y = attention_block(attn_p["attn"], cfg, h, positions, causal=causal)
+        elif not causal:
+            y = attention_encode(attn_p["attn"], cfg, h, positions)
         elif mode == "prefill":
             y, new_attn_cache = attention_prefill(attn_p["attn"], cfg, h, positions)
         else:
             y, new_attn_cache = attention_decode(attn_p["attn"], cfg, h, cache["attn"],
                                                  positions)
         x = x + y
-        if mode != "train":
+        if mode != "train" and causal:
             new_cache = dict(cache) if cache is not None else {}
             new_cache["attn"] = new_attn_cache
+        if cfg.is_encoder_decoder and memory is not None:
+            hx = norm(x, p["norm_x"], cfg.norm_eps)
+            x = x + cross_attention(p["xattn"], cfg, hx, memory, mode)
         if "moe" in attn_p or "mlp" in attn_p:
             h2 = norm(x, attn_p["norm2"], cfg.norm_eps)
             if "moe" in attn_p:  # every expert in decode, the capacity route otherwise
@@ -183,15 +228,16 @@ def _apply_block(p, shared, cfg, kind, x, positions, mode, cache):
                 y2 = mlp(attn_p["mlp"], h2)
             x = x + y2
         return x, new_cache, aux
-    if kind != "mamba2":
-        raise NotImplementedError(f"block kind {kind!r} is not ported yet")
+    if kind not in _MIXERS:
+        raise NotImplementedError(f"block kind {kind!r} is not in the port")
+    _, train_fn, prefill_fn, decode_fn = _MIXERS[kind]
     h = norm(x, p["norm1"], cfg.norm_eps)
     if mode == "train":
-        return x + mamba2_block(p["mixer"], cfg, h), new_cache, aux
+        return x + train_fn(p["mixer"], cfg, h), new_cache, aux
     if mode == "prefill":
-        y, new_cache = mamba2_prefill(p["mixer"], cfg, h)
+        y, new_cache = prefill_fn(p["mixer"], cfg, h)
     else:
-        y, new_cache = mamba2_decode(p["mixer"], cfg, h, cache)
+        y, new_cache = decode_fn(p["mixer"], cfg, h, cache)
     return x + y, new_cache, aux
 
 
@@ -208,8 +254,9 @@ def _unstack(tree: PyTree, n: int) -> List[PyTree]:
     return [tree_unflatten(treedef, [p[i] for p in parts]) for i in range(n)]
 
 
-def _apply_stack(params, cfg, x, positions, mode, caches, remat=False):
-    """caches: {"units": {slotS: stacked cache}, "tail": {layerI: cache}} or None.
+def _apply_stack(params, cfg, x, positions, mode, caches, memory=None, remat=False):
+    """caches: {"units": {slotS: stacked cache}, "tail": {layerI: cache}} or None;
+    ``memory``: whisper's encoder output, which every decoder block attends to.
 
     Returns (x, new caches, summed aux loss); the unit caches are stacked
     on a leading axis again, as the JAX scan emits them. ``remat``
@@ -227,7 +274,8 @@ def _apply_stack(params, cfg, x, positions, mode, caches, remat=False):
         for s, kind in enumerate(unit):
             c = tree_map(lambda a: a[i], unit_caches[f"slot{s}"]) if unit_caches else None
             sh = shared if (kind == "attn" and shared is not None) else None
-            x, nc, a = _apply_block(slot_params[s][i], sh, cfg, kind, x, positions, mode, c)
+            x, nc, a = _apply_block(slot_params[s][i], sh, cfg, kind, x, positions, mode, c,
+                                    memory)
             aux = aux + a
             if nc is not None:
                 out_c[f"slot{s}"] = nc
@@ -248,7 +296,7 @@ def _apply_stack(params, cfg, x, positions, mode, caches, remat=False):
         c = (caches or {}).get("tail", {}).get(f"layer{i}") if caches else None
         sh = shared if (kind == "attn" and shared is not None) else None
         x, nc, aux = _apply_block(params["tail"][f"layer{i}"], sh, cfg, kind, x, positions,
-                                  mode, c)
+                                  mode, c, memory)
         aux_total = aux_total + aux
         if nc is not None:
             new_caches["tail"][f"layer{i}"] = nc
@@ -279,6 +327,20 @@ def _embed_inputs(params, cfg, batch):
     return x, torch.arange(S_total, device=tokens.device)[None].expand(B, S_total)
 
 
+def encode(params, cfg: ArchConfig, frames, mode: str = "train"):
+    """Whisper's encoder over stub frame embeddings (B, S_enc, D): the frames
+    in the model dtype, rope positions 0 .. S_enc - 1, the encoder blocks
+    without a mask, then its final norm. ``mode`` "train" (from
+    :func:`forward`) runs the differentiable ops, "prefill" the kernels."""
+    x = frames.to(dtype_of(cfg))
+    B, S, _ = x.shape
+    positions = torch.arange(S, device=x.device)[None].expand(B, S)
+    for p in _unstack(params["encoder"]["blocks"], cfg.num_encoder_layers):
+        x, _, _ = _apply_block(p, None, cfg, "attn", x, positions, mode, None, causal=False)
+    norm = rmsnorm_train if mode == "train" else rmsnorm
+    return norm(x, params["encoder"]["final_norm"], cfg.norm_eps)
+
+
 def _logits(params, cfg, h):
     return (h @ params["embed"]["tok"].T) if cfg.tie_embeddings else (h @ params["lm_head"])
 
@@ -292,8 +354,9 @@ def forward(params, cfg: ArchConfig, batch, remat: bool = True):
     kernel). Returns (logits (B, S, V), aux_loss, h_final); with a vision
     prefix, logits and h cover the text positions only."""
     _check_arch(cfg)
+    memory = encode(params, cfg, batch["frames"], "train") if cfg.is_encoder_decoder else None
     x, positions = _embed_inputs(params, cfg, batch)
-    x, _, aux = _apply_stack(params, cfg, x, positions, "train", None, remat=remat)
+    x, _, aux = _apply_stack(params, cfg, x, positions, "train", None, memory, remat=remat)
     h = rmsnorm_train(x, params["final_norm"], cfg.norm_eps)
     if cfg.num_vision_tokens and "vision" in batch:
         h = h[:, cfg.num_vision_tokens:]  # loss only over text positions
@@ -302,11 +365,15 @@ def forward(params, cfg: ArchConfig, batch, remat: bool = True):
 
 
 def prefill(params, cfg: ArchConfig, batch, max_len: int):
-    """Full-sequence prefill. Returns (last-position logits, cache, h)."""
+    """Full-sequence prefill. Returns (last-position logits, cache, h); an
+    enc-dec cache keeps the encoder output as ``"memory"``."""
     _check_arch(cfg)
+    memory = encode(params, cfg, batch["frames"], "prefill") if cfg.is_encoder_decoder else None
     x, positions = _embed_inputs(params, cfg, batch)
-    x, caches, _ = _apply_stack(params, cfg, x, positions, "prefill", None)
+    x, caches, _ = _apply_stack(params, cfg, x, positions, "prefill", None, memory)
     h = rmsnorm(x[:, -1:], params["final_norm"], cfg.norm_eps)
+    if memory is not None:
+        caches["memory"] = memory
     caches = _resize_attn_caches(params, cfg, caches, max_len)
     caches["t"] = torch.tensor(x.shape[1], dtype=torch.int32, device=x.device)  # incl. vision
     return _logits(params, cfg, h), caches, h
@@ -355,7 +422,10 @@ def decode_step(params, cfg: ArchConfig, tokens, caches):
         nv = cfg.num_vision_tokens
         p = (mrope_text_start(nv) + caches["t"] - nv).to(torch.int32)
         positions = p.expand(3, tokens.shape[0], 1)
-    x, new_caches, _ = _apply_stack(params, cfg, x, positions, "decode", caches)
+    memory = caches["memory"] if cfg.is_encoder_decoder else None
+    x, new_caches, _ = _apply_stack(params, cfg, x, positions, "decode", caches, memory)
+    if memory is not None:
+        new_caches["memory"] = memory
     new_caches["t"] = caches["t"] + 1
     h = rmsnorm(x, params["final_norm"], cfg.norm_eps)
     return _logits(params, cfg, h), new_caches, h

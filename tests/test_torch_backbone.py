@@ -181,10 +181,18 @@ def test_empty_cache_inits_match_jax():
 
 
 def test_unported_configs_raise():
-    with pytest.raises(KeyError, match="whisper"):
-        t_get_config("whisper-base")
-    with pytest.raises(KeyError, match="mLSTM"):
-        t_get_config("xlstm-1.3b")
+    """Every registry name of the reference is registered in the port (the
+    last two, whisper-base and xlstm-1.3b, equal to the reference's field
+    for field); an unknown name, ``analysis_mode`` and the ``PerfConfig``
+    levers raise."""
+    from repro.configs import ARCH_NAMES as J_ARCH_NAMES
+    from repro_torch.configs import ARCH_NAMES as T_ARCH_NAMES
+
+    assert set(T_ARCH_NAMES) == set(J_ARCH_NAMES)
+    for arch in ("whisper-base", "xlstm-1.3b"):
+        j, t = j_get_config(arch), t_get_config(arch)
+        assert dataclasses.asdict(t) == {
+            k: v for k, v in dataclasses.asdict(j).items() if k != "use_pallas"}, arch
     with pytest.raises(KeyError, match="unknown"):
         t_get_config("gpt-9")
     cfg = t_get_config("qwen3-4b").reduced()
@@ -196,9 +204,6 @@ def test_unported_configs_raise():
     perf = dataclasses.replace(cfg.perf, pad_heads=16)
     with pytest.raises(NotImplementedError, match="PerfConfig"):
         TT.prefill(params, dataclasses.replace(cfg, perf=perf), tokens, 8)
-    with pytest.raises(NotImplementedError, match="enc-dec"):
-        TT.init_params(gen, dataclasses.replace(cfg, is_encoder_decoder=True,
-                                                num_encoder_layers=2, arch_type="audio"))
 
 
 def test_sliding_window_ring_buffer_matches_jax():

@@ -155,7 +155,7 @@ def test_gla_plain_matches_pallas_and_oracle(case):
         jnp_path = chunked_gla(jq, jk, jv, jnp.asarray(a))
         np.testing.assert_allclose(_np(got), _np(jnp_path), rtol=tol["rtol"],
                                    atol=tol["atol"] * scale)
-    assert tgla.LAUNCHES == {"gla": 0, "gla_tc": 0}
+    assert tgla.LAUNCHES == {"gla": 0, "gla_tc": 0, "gla_reduce": 0}
 
 
 def test_gla_plain_padded_steps_are_identity():

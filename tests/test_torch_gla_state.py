@@ -18,6 +18,12 @@ the last chunk. Here, on numpy-seeded inputs:
 * the tensor-core kernel's launch plan (pure Python): the dv slices cover
   every column once, shared memory fits the H100's 227 KB and equals the
   source's formula, and the route follows the dtype;
+* the split past dk = 128 (mLSTM's dk 1,024, dv 1,025): the plan's dk
+  tiles, dv slices and workspace at (1,024, 1,025), 129, 256 and up to 128
+  (there the single-tile plan with no workspace), and an emulation of the
+  split in torch: ``gla_plain`` on each block's dk rows and dv columns, the
+  partials summed in tile order as the reduction sums them, equals
+  ``gla_plain`` on the whole to f32 rounding, and so do the state pieces;
 * the mutants ``chip_smoke.py --gla-mutants`` builds: each one's text
   stands in ``csrc/gla.cu`` exactly once and its replacement changes it.
 """
@@ -99,7 +105,7 @@ def test_gla_state_matches_jax(case):
     _close(_np(y), _np(tgla.gla(tq, tk, tv, ta)), tol)
     _close(_np(y), _np(JS.chunked_gla(jq, jk, jv, ja)), tol)
     _close(_np(y), _np(ops.gla(jq, jk, jv, ja, interpret=True)), tol)
-    assert tgla.LAUNCHES == {"gla": 0, "gla_tc": 0}
+    assert tgla.LAUNCHES == {"gla": 0, "gla_tc": 0, "gla_reduce": 0}
 
 
 def test_gla_state_continues_the_recurrence():
@@ -170,7 +176,8 @@ def test_tc_plan_slices_cover_dv_once_and_fit(shape, S):
     B, H, dk, dv = shape
     plan = tgla.gla_plan(B, H, dk, dv, torch.bfloat16, S=S)
     assert plan.route == "tc" and plan.dv_cols == tgla.TC_COLS == 64
-    assert plan.grid == (B * H, plan.slices) and plan.slices == (1 if dv <= 64 else 2)
+    assert plan.grid == (B * H, plan.slices, 1) and plan.slices == (1 if dv <= 64 else 2)
+    assert (plan.dk_rows, plan.dk_tiles, plan.workspace) == (dk, 1, 0)
     cover = np.zeros(dv, dtype=int)
     for s in range(plan.slices):  # block y takes columns s * 64 + [0, 64)
         cols = np.arange(s * plan.dv_cols, (s + 1) * plan.dv_cols)
@@ -195,7 +202,7 @@ def test_tc_smem_formula():
     # mamba2's serve shapes: one block a (batch, head) over all 64 columns;
     # two blocks an SM by memory for the walk, three for a one-chunk prompt.
     plan = tgla.gla_plan(4, 112, 64, 64, torch.bfloat16, S=4096)
-    assert (plan.dv_cols, plan.slices, plan.grid) == (64, 1, (448, 1))
+    assert (plan.dv_cols, plan.slices, plan.grid) == (64, 1, (448, 1, 1))
     assert 2 * (plan.smem + 1024) <= 228 * 1024 < 3 * (plan.smem + 1024)
     plan = tgla.gla_plan(8, 112, 64, 64, torch.bfloat16, S=64)
     assert 3 * (plan.smem + 1024) <= 228 * 1024
@@ -203,11 +210,82 @@ def test_tc_smem_formula():
 
 def test_plan_route_follows_dtype():
     assert tgla.gla_plan(2, 3, 64, 64, torch.float32).route == "simt"
-    assert tgla.gla_plan(2, 3, 64, 64, torch.float32).grid == (6, 1)
+    assert tgla.gla_plan(2, 3, 64, 64, torch.float32).grid == (6, 1, 1)
     assert tgla.gla_plan(2, 3, 64, 64, torch.bfloat16).route == "tc"
     assert [tgla.gla_plan(2, 3, 64, dv, torch.bfloat16).grid
-            for dv in (1, 32, 64, 65, 128)] == [(6, 1)] * 3 + [(6, 2)] * 2
-    assert tgla.gla_plan(2, 3, 64, 65, torch.float32).grid == (6, 1)
+            for dv in (1, 32, 64, 65, 128)] == [(6, 1, 1)] * 3 + [(6, 2, 1)] * 2
+    assert tgla.gla_plan(2, 3, 64, 65, torch.float32).grid == (6, 1, 1)
+
+
+SPLIT_PLANS = [
+    # (B, S, H, dk, dv, dtype): (dk_rows, dk_tiles, dv_cols, slices)
+    ((8, 512, 4, 1024, 1025, "bf16"), (128, 8, 64, 17)),
+    ((8, 512, 4, 1024, 1025, "f32"), (128, 8, 128, 9)),
+    ((2, 300, 4, 129, 130, "bf16"), (128, 2, 64, 3)),
+    ((2, 300, 4, 129, 130, "f32"), (128, 2, 128, 2)),
+    ((2, 300, 4, 256, 64, "bf16"), (128, 2, 64, 1)),
+    ((2, 300, 4, 64, 1025, "bf16"), (64, 1, 64, 17)),
+    ((4, 4096, 112, 64, 64, "bf16"), (64, 1, 64, 1)),
+    ((2, 300, 4, 128, 128, "f32"), (128, 1, 128, 1)),
+]
+DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32}
+
+
+@pytest.mark.parametrize("case", SPLIT_PLANS, ids=lambda c: "x".join(map(str, c[0])))
+def test_split_plan_tiles_and_workspace(case):
+    (B, S, H, dk, dv, dt), (rows, tiles, cols, slices) = case
+    plan = tgla.gla_plan(B, H, dk, dv, DTYPES[dt], S=S)
+    assert (plan.dk_rows, plan.dk_tiles, plan.dv_cols, plan.slices) == (rows, tiles, cols, slices)
+    assert plan.grid == (B * H, slices, tiles)
+    # the f32 partials of every dk tile, or none with one tile (one launch, as before)
+    assert plan.workspace == (tiles * B * S * H * dv * 4 if tiles > 1 else 0)
+    if (dk, dv) == (1024, 1025):
+        assert plan.workspace == 8 * 67_174_400  # 8 x 67 MB at the mLSTM cell
+    if dt == "bf16":
+        assert plan.smem == tgla.tc_smem_bytes(min(dk, 128), S) <= tgla.SMEM_LIMIT
+
+
+def test_split_plan_refuses_what_the_grid_cannot_launch():
+    assert tgla.gla_plan(1, 1, 128 * 65_535, 1, torch.bfloat16).dk_tiles == 65_535
+    with pytest.raises(ValueError, match="past the card's limits"):
+        tgla.gla_plan(1, 1, 128 * 65_535 + 1, 1, torch.bfloat16)
+    with pytest.raises(ValueError, match="past the card's limits"):
+        tgla.gla_plan(1, 1, 64, 64 * 65_535 + 1, torch.bfloat16)
+
+
+def _emulate_split(q, k, v, log_a, plan):
+    """The kernels' split: each (dk tile, dv slice) block walks the chunks
+    with its piece of the state (``gla_plain`` on its rows of q, k and its
+    columns of v); the partials of a dv slice are summed over the dk tiles
+    in tile order in f32, as ``gla_reduce_kernel`` sums them."""
+    dk, dv = q.shape[-1], v.shape[-1]
+    ys, states = [], []
+    for j0 in range(0, dv, plan.dv_cols):
+        vj = v[..., j0:j0 + plan.dv_cols]
+        acc, pieces = None, []
+        for i0 in range(0, dk, plan.dk_rows):
+            part, st = tref.gla_plain(q[..., i0:i0 + plan.dk_rows], k[..., i0:i0 + plan.dk_rows],
+                                      vj, log_a, chunk=tgla.CHUNK, return_state=True)
+            acc = part if acc is None else acc + part
+            pieces.append(st)
+        ys.append(acc)
+        states.append(torch.cat(pieces, dim=2))
+    return torch.cat(ys, dim=-1), torch.cat(states, dim=-1)
+
+
+@pytest.mark.parametrize("dims", [(300, 70), (129, 130), (256, 64), (64, 200)],
+                         ids=["dk300_dv70", "dk129_dv130", "dk256_dv64", "dk64_dv200"])
+@pytest.mark.parametrize("dt", ["bf16", "f32"])
+def test_split_emulation_equals_the_whole(dims, dt):
+    dk, dv = dims
+    B, S, H = 2, 150, 2
+    q, k, v, a = (torch.from_numpy(x) for x in _inputs(B, S, H, dk, dv, False, 31))
+    plan = tgla.gla_plan(B, H, dk, dv, DTYPES[dt], S=S)
+    assert plan.dk_tiles == -(-dk // 128)
+    y, state = _emulate_split(q, k, v, a, plan)
+    want, want_state = tref.gla_plain(q, k, v, a, chunk=tgla.CHUNK, return_state=True)
+    _close(_np(y), _np(want), dict(atol=1e-5, rtol=1e-5))  # atol x the largest |value|
+    _close(_np(state), _np(want_state), dict(atol=1e-6, rtol=1e-6))
 
 
 # ---------------------------------------------------------------------------
