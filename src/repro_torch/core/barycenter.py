@@ -96,6 +96,16 @@ def wasserstein2_gaussian(mu1, cov1, mu2, cov2, sqrtm=sqrtm_eigh) -> torch.Tenso
     return torch.sum((mu1 - mu2) ** 2) + torch.clamp(bures, min=0.0)
 
 
+def barycenter_params_diag(family, params_list: Sequence[dict]) -> dict:
+    """Barycenter of diagonal-Gaussian family members given as a list of
+    params: the mean of the μ and of the σ = e^{log σ}, mapped back through
+    ``family.from_moments``."""
+    mus = torch.stack([p["mu"] for p in params_list])
+    sigmas = torch.stack([torch.exp(p["log_sigma"]) for p in params_list])
+    mu, sigma = diag_barycenter(mus, sigmas)
+    return family.from_moments(mu, sigma)
+
+
 def barycenter_params_full(family, params_list: Sequence[dict], **kw) -> dict:
     """Barycenter of full-covariance family members given as a list of params."""
     mus = torch.stack([p["mu"] for p in params_list])

@@ -23,10 +23,8 @@
 // type, as the TPU kernel casts its f32 y once. No atomics: the sum's order
 // is fixed, so two runs give the same bits. Every block recomputes the
 // cumsum and decays from log_a (they depend on (b, h, t) only) and writes
-// its own piece of the final state. The tensor-core kernel then feeds P to
-// P v as a bf16 hi + lo pair (the tiles' partial scores may cancel in the
-// sum, which P rounded once a tile would not survive). Up to dk = 128 there
-// is one tile, no workspace and no second launch.
+// its own piece of the final state. Up to dk = 128 there is one tile, no
+// workspace and no second launch.
 //
 // Built by repro_torch/kernels/build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared -Xcompiler -fPIC
@@ -52,8 +50,12 @@
 //   where 448 at two an SM run two), so a slice is never narrower.
 //   - The four products are mma.sync m16n8k16 bf16 with f32 accumulate:
 //     q k^T (warp w: rows 16w..16w+15, keys s <= its last row only);
-//     P v, with P = scores o D formed in f32 and rounded to bf16 (as the
-//     flash kernel rounds P), fed from the score registers as A fragments;
+//     P v, with P = scores o D formed in f32 and fed from the score
+//     registers as A fragments in two parts, bf16(P) and the bf16 of what
+//     that rounding left (P - bf16(P)): the Pallas kernel keeps P in f32,
+//     and a model's own rows can cancel in P v past what P rounded once
+//     allows (zamba2's first launches at prompt 4,096 read twice the
+//     element limit that way), as can the dk tiles' partial scores;
 //     q S_in, scaled by e^{L_t} afterwards (so q enters exact);
 //     (k e^{L_C - L})^T v, the state update.
 //   - The f32 state stays in registers for the whole walk, as the TPU
@@ -518,10 +520,10 @@ __device__ __forceinline__ void load_stage(const Params& p, const __nv_bfloat16*
 
 // Grid (B * H, ceil(dv / NS), ceil(dk / 128)), 128 threads. DKP (64 or 128)
 // >= the block's dk tile (rows i0 .. i0 + dkt - 1 of dk); NS columns of dv a
-// block. SPLIT (dk > 128): y is this tile's f32 partial, written to ws, and
-// P enters P v as a bf16 hi + lo pair: the partial scores of the tiles may
-// cancel in the sum, so P rounded once a tile would err by 2^-9 of each
-// partial instead of the whole. Fragment names follow the PTX ISA's
+// block. SPLIT (dk > 128): y is this tile's f32 partial, written to ws.
+// P enters P v as a bf16 hi + lo pair on every instantiation: rounded once
+// it would err by 2^-9 of each term, and the terms of P v (or the tiles'
+// partials) may cancel to far less than their sizes. Fragment names follow the PTX ISA's
 // m16n8k16 layout: g = lane / 4 is a fragment row, c4 = lane % 4 picks its
 // column pair.
 template <int DKP, bool VQK, bool VV, bool SPLIT>
@@ -617,11 +619,11 @@ gla_tc_kernel(const Params p) {
         mma(sc[2 * np + 1], qa[kk], kb[2], kb[3]);
       }
     }
-    // P = scores o D (s <= t, masked before the exp), rounded to bf16 as the
-    // A fragments of P v: k16 step kk2 takes n8 tiles 2 kk2 and 2 kk2 + 1;
-    // under SPLIT what the rounding left (P - bf16(P)) as a second fragment.
+    // P = scores o D (s <= t, masked before the exp) as the A fragments of
+    // P v: k16 step kk2 takes n8 tiles 2 kk2 and 2 kk2 + 1; bf16(P) in pa,
+    // what the rounding left (P - bf16(P)) in pl.
     uint32_t pa[kC / 16][4];
-    uint32_t pl[SPLIT ? kC / 16 : 1][4];
+    uint32_t pl[kC / 16][4];
 #pragma unroll
     for (int kk2 = 0; kk2 < kC / 16; ++kk2) {
       if (kk2 > warp) break;
@@ -640,12 +642,10 @@ gla_tc_kernel(const Params p) {
       pa[kk2][1] = pack_bf16(w[0][2], w[0][3]);
       pa[kk2][2] = pack_bf16(w[1][0], w[1][1]);
       pa[kk2][3] = pack_bf16(w[1][2], w[1][3]);
-      if constexpr (SPLIT) {
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float2 h = unpack_bf16(pa[kk2][e]);
-          pl[kk2][e] = pack_bf16(w[e / 2][2 * (e % 2)] - h.x, w[e / 2][2 * (e % 2) + 1] - h.y);
-        }
+      for (int e = 0; e < 4; ++e) {
+        const float2 h = unpack_bf16(pa[kk2][e]);
+        pl[kk2][e] = pack_bf16(w[e / 2][2 * (e % 2)] - h.x, w[e / 2][2 * (e % 2) + 1] - h.y);
       }
     }
 
@@ -691,10 +691,8 @@ gla_tc_kernel(const Params p) {
                                 (mi / 2) * 8));
         mma(y[2 * np], pa[kk2], vb[0], vb[1]);
         mma(y[2 * np + 1], pa[kk2], vb[2], vb[3]);
-        if constexpr (SPLIT) {
-          mma(y[2 * np], pl[kk2], vb[0], vb[1]);
-          mma(y[2 * np + 1], pl[kk2], vb[2], vb[3]);
-        }
+        mma(y[2 * np], pl[kk2], vb[0], vb[1]);
+        mma(y[2 * np + 1], pl[kk2], vb[2], vb[3]);
       }
     }
 #pragma unroll

@@ -11,6 +11,7 @@ from repro_torch.data.synthetic import (
     make_lda_corpus,
     make_six_cities,
     make_synthetic_mnist,
+    six_cities_truth,
 )
 
 __all__ = [
@@ -22,5 +23,6 @@ __all__ = [
     "make_six_cities",
     "make_synthetic_mnist",
     "pad_ragged_silos",
+    "six_cities_truth",
     "sizes_partition",
 ]

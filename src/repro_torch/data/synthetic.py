@@ -98,14 +98,20 @@ def make_six_cities(rng: np.random.Generator, num_children: int = 537) -> tuple:
     """
     smoke = (rng.random(num_children) < 0.4).astype(np.float32)
     age = np.tile(np.array([-2.0, -1.0, 0.0, 1.0], np.float32), (num_children, 1))
-    true_beta = np.array([-1.8, 0.4, -0.15, 0.08], np.float32)
-    true_omega = 0.0  # random-intercept sd = exp(-omega) = 1.0
+    truth = six_cities_truth()
+    true_beta, true_omega = truth["beta"], truth["omega"]
     b = (np.exp(-true_omega) * rng.standard_normal(num_children)).astype(np.float32)
     logits = (true_beta[0] + true_beta[1] * smoke[:, None] + true_beta[2] * age
               + true_beta[3] * smoke[:, None] * age + b[:, None])
     y = (rng.random(logits.shape) < 1.0 / (1.0 + np.exp(-logits))).astype(np.float32)
     data = {"smoke": smoke, "age": age, "y": y}
-    return data, {"beta": true_beta, "omega": float(true_omega)}
+    return data, truth
+
+
+def six_cities_truth() -> dict:
+    """The six-cities generator's ground truth: β and ω (random-intercept
+    sd exp(−ω) = 1)."""
+    return {"beta": np.array([-1.8, 0.4, -0.15, 0.08], np.float32), "omega": 0.0}
 
 
 def zipf_probs(vocab_size: int, zipf_a: float = 1.2) -> np.ndarray:

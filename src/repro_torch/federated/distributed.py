@@ -19,15 +19,19 @@ its silo block only:
 The round's two collectives are here: :func:`gather_rows` (the silo
 blocks' rows into the whole padded silo axis, over the silo group) and
 :func:`gather_cols` (the column blocks of each row rejoined, over the
-model group). Both count the bytes they return (``GATHERED``). With
-gloo, a CUDA tensor is staged through host memory explicitly (gloo's own
-collectives are CPU ones); the backend is always the one the caller
-named.
+model group). Both count the bytes they return (``GATHERED``). The
+backbone's multi-process train step sums its θ and η_G gradients over the
+silo group with :func:`sum_leaves_over_silos` (``REDUCED`` adds up the
+host seconds around its all-reduces: with NCCL, which returns before the
+collective ends, that is the enqueue, not the collective). With gloo, a CUDA tensor is staged
+through host memory explicitly (gloo's own collectives are CPU ones); the
+backend is always the one the caller named.
 """
 from __future__ import annotations
 
 import datetime
 import os
+import time
 from typing import Any, Dict, List, Optional
 
 import torch
@@ -45,11 +49,16 @@ ENV_PROC_ID = "REPRO_PROCESS_ID"
 
 # Bytes each collective returned to this rank, by axis.
 GATHERED: Dict[str, int] = {"silo": 0, "model": 0}
+# Host seconds around this rank's gradient all-reduces (not synchronized).
+REDUCED: Dict[str, float] = {"seconds": 0.0}
+REDUCE_BUCKET = 1 << 26  # elements of one all-reduce bucket (256 MB in f32)
 
 
 def reset_gathered() -> None:
     for k in GATHERED:
         GATHERED[k] = 0
+    for k in REDUCED:
+        REDUCED[k] = 0
 
 
 def _init_method(coordinator: str) -> str:
@@ -94,6 +103,24 @@ def initialize(coordinator: Optional[str] = None, num_processes: Optional[int] =
     dist.init_process_group(backend, init_method=_init_method(coordinator),
                             world_size=num_processes, rank=process_id,
                             timeout=datetime.timedelta(seconds=timeout_s))
+
+
+def start_from_flags(coordinator: Optional[str], num_processes: Optional[int],
+                     process_id: Optional[int], device=None) -> bool:
+    """A CLI's world: with any process flag (or ``REPRO_COORDINATOR`` set)
+    and no world yet, :func:`initialize` one and export the flags into the
+    env schema. Returns whether it started one (a caller's world is left
+    to the caller)."""
+    flags = {ENV_COORD: coordinator, ENV_NUM_PROCS: num_processes, ENV_PROC_ID: process_id}
+    if dist.is_available() and dist.is_initialized():
+        return False
+    if all(v is None for v in flags.values()) and not os.environ.get(ENV_COORD):
+        return False
+    initialize(coordinator, num_processes, process_id, device=device)
+    for env, value in flags.items():
+        if value is not None:
+            os.environ[env] = str(value)
+    return True
 
 
 def is_multiprocess() -> bool:
@@ -224,6 +251,37 @@ def sum_over_silos(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     for p in parts[1:]:
         total = total + p
     return total.reshape(x.shape)
+
+
+def sum_leaves_over_silos(leaves: List[torch.Tensor], mesh: Mesh) -> None:
+    """In place: each tensor of ``leaves`` <- its sum over the silo group
+    (a no-op on a mesh without a world). Consecutive leaves are flattened
+    into f32 buckets of at most ``REDUCE_BUCKET`` elements (a larger leaf
+    is a bucket of its own), each bucket is one ``all_reduce`` (sum), and
+    the sums are written back in the leaves' dtypes: a bf16 gradient's
+    partials are added in f32 and rounded once. ``all_reduce`` hands every
+    rank the same reduced buffer, so the ranks' sums are bit-identical."""
+    if not mesh.distributed:
+        return
+    group = mesh.silo_group
+    i = 0
+    while i < len(leaves):
+        j, n = i, 0
+        while j < len(leaves) and (j == i or n + leaves[j].numel() <= REDUCE_BUCKET):
+            n += leaves[j].numel()
+            j += 1
+        t0 = time.perf_counter()
+        flat = torch.cat([x.reshape(-1).float() for x in leaves[i:j]])
+        buf = flat.to(_backend_device(group, flat))
+        dist.all_reduce(buf, group=group)
+        flat = buf.to(flat.device)
+        off = 0
+        for x in leaves[i:j]:
+            x.copy_(flat[off: off + x.numel()].view(x.shape))
+            off += x.numel()
+        REDUCED["seconds"] += time.perf_counter() - t0
+        del flat, buf
+        i = j
 
 
 def gather_tree_rows(tree: PyTree, mesh: Mesh) -> PyTree:

@@ -185,17 +185,8 @@ def _start_world(args) -> bool:
             f"{args.devices} devices with {args.devices} processes: --coordinator "
             f"HOST:PORT --num-processes {args.devices} --process-id R and --mesh "
             f"silo={args.devices},multiprocess")
-    flags = {distributed.ENV_COORD: args.coordinator,
-             distributed.ENV_NUM_PROCS: args.num_processes,
-             distributed.ENV_PROC_ID: args.process_id}
-    if all(v is None for v in flags.values()) and not os.environ.get(distributed.ENV_COORD):
-        return False
-    distributed.initialize(args.coordinator, args.num_processes, args.process_id,
-                           device=args.device)
-    for env, value in flags.items():
-        if value is not None:
-            os.environ[env] = str(value)
-    return True
+    return distributed.start_from_flags(args.coordinator, args.num_processes,
+                                        args.process_id, device=args.device)
 
 
 def _family_spec(name, kwargs_json):

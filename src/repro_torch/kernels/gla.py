@@ -7,7 +7,7 @@ mLSTM recurrence S_t = e^{a_t} S_{t−1} + k_t v_tᵀ, y_t = q_t·S_t,
 computed 64 steps a chunk with the (dk, dv) state in f32. bfloat16
 inputs take the tensor-core kernel (``mma.sync`` chunk products, the
 state in registers, dv split across blocks, ``cp.async`` double
-buffering; P rounded to bf16 before P v); float32 inputs take the SIMT
+buffering; P fed to P v as a bf16 hi + lo pair); float32 inputs take the SIMT
 kernel, the f32 parity route. Either can write the state after the last
 chunk (``return_state=True``), which ``mamba2_prefill`` and
 ``mlstm_prefill`` keep as their decode caches.

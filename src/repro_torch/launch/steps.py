@@ -32,6 +32,26 @@ updates θ, η_G and η_L. Deliberate differences from the reference:
 * ``cfg.perf.microbatch`` (the reference's ``_grads_microbatched``) and the
   other ``PerfConfig`` levers raise.
 
+Across ranks (``mesh=``, a :class:`~repro_torch.launch.mesh.Mesh` over a
+``torch.distributed`` world: the reference's SPMD path, silos as slices of
+the data axis and the server a psum): rank r holds the contiguous block of
+J / N silos ``distributed.owned_rows`` gives it, those silos' rows of the
+batch (B / N of them, :func:`rank_rows`), their η_L rows and Adam state, and under SFVI-Avg
+their η_G rows; θ and SFVI's η_G are replicated. Each rank's objective
+sums its block's L̂_j; the server term L̂_0 is added on the silo group's
+first rank only; the −ELBO is normalized by the global B · S. The θ and
+η_G gradients are summed over the silo group
+(``distributed.sum_leaves_over_silos``), and Adam then runs alike on every
+rank. ε_G is the step's (the same on every rank) and ε_L the rank's rows
+of the one (J, n_L) draw, so a step equals the one-process step up to the
+order of its sums (SFVI's partition invariance). The metrics are the
+federation's (summed over the silo group in the gradients'
+last all-reduce bucket). SFVI-Avg's barycenter gathers
+the J rows of η_G first. The mesh's model axis is refused (the
+reference's jitted train step carries no parameter shardings), as are
+the MoE configs on more than one silo block (their capacity groups and
+load-balance loss span the whole batch).
+
 Serving (:func:`make_serve_prefill`, :func:`make_serve_decode`) runs the
 posterior-mean model (θ, E[Z_G], E[Z_Lj]) through the backbone's kernels.
 Every silo keeps its personal head adapter, so one batch serves requests
@@ -47,8 +67,10 @@ import torch
 from torch.func import vmap
 
 from repro_torch.device import generator
+from repro_torch.federated import distributed
 from repro_torch.kernels import wire as wire_kernels
 from repro_torch.kernels.reparam import reparam_stl
+from repro_torch.launch.mesh import Mesh
 from repro_torch.models.backbone import transformer as T
 from repro_torch.models.backbone.bayes import (
     bayes_logits,
@@ -196,6 +218,82 @@ def _sorted(metrics: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     return dict(sorted(metrics.items()))
 
 
+@dataclasses.dataclass(frozen=True)
+class SiloBlock:
+    """This rank's silos ``lo .. hi - 1`` of J, over ``ranks`` silo blocks;
+    ``lead`` adds the server term. ``mesh`` is None in one process."""
+
+    lo: int
+    hi: int
+    ranks: int
+    lead: bool
+    mesh: Optional[Mesh]
+
+
+MODEL_AXIS_REFUSAL = (
+    "a model axis in training is refused: the reference's jitted train step carries no "
+    "parameter shardings (launch/shardings.py::param_shardings is reached only from its "
+    "dry-run lowering), so a split of θ over ranks would be a feature its executed path "
+    "lacks; use --mesh silo=N,multiprocess")
+
+
+def silo_block(cfg: ArchConfig, num_silos: int, mesh: Optional[Mesh]) -> SiloBlock:
+    """The block of silos this rank trains (all of them without a world)."""
+    if mesh is None or not mesh.distributed:
+        return SiloBlock(0, num_silos, 1, True, None)
+    if mesh.model > 1:
+        raise ValueError(MODEL_AXIS_REFUSAL)
+    if num_silos % mesh.silo:
+        raise ValueError(f"{num_silos} silos do not split into {mesh.silo} silo blocks")
+    if cfg.is_moe and mesh.silo > 1:
+        raise ValueError(
+            f"{cfg.name} is a MoE config: its capacity groups and load-balance loss are "
+            "computed over the whole batch, so a batch split over silo blocks would change "
+            "them; train it on one silo block")
+    rows = distributed.owned_rows(mesh, num_silos)
+    return SiloBlock(rows[0], rows[-1] + 1, mesh.silo, mesh.silo_index == 0, mesh)
+
+
+def shard_train_state(state: TrainState, blk: SiloBlock, silo_eta_G: bool = False
+                      ) -> TrainState:
+    """A step-0 state -> this rank's: its rows of η_L (and of η_G when
+    ``silo_eta_G``, SFVI-Avg's), with fresh Adam states for them (the
+    step-0 state's are fresh too); θ and the rest are kept."""
+    if blk.mesh is None:
+        return state
+    if state.step != 0:
+        raise ValueError("shard_train_state takes a state at step 0")
+    opt = adam(1.0)  # init only: the state's layout does not depend on lr
+
+    def rows(eta):
+        return {k: v[blk.lo: blk.hi].clone() for k, v in eta.items()}
+
+    eta_L = rows(state.eta_L)
+    eta_G = rows(state.eta_G) if silo_eta_G else state.eta_G
+    opt_eta_G = opt.init(eta_G) if silo_eta_G else state.opt_eta_G
+    return TrainState(state.theta, eta_G, eta_L, state.opt_theta, opt_eta_G, opt.init(eta_L),
+                      state.step)
+
+
+def rank_rows(x: torch.Tensor, blk: SiloBlock) -> torch.Tensor:
+    """A whole (B, ...) batch tensor -> the B / N rows of ``blk``'s silos."""
+    if blk.mesh is None:
+        return x
+    per = x.shape[0] // (blk.ranks * (blk.hi - blk.lo))
+    return x[blk.lo * per: blk.hi * per]
+
+
+def _reduce(blk: SiloBlock, grads: List[torch.Tensor], metrics: Dict[str, torch.Tensor],
+            keys) -> Dict[str, torch.Tensor]:
+    """Sum a rank's gradients over the silo group, in place, and the named
+    metrics with them (in the last bucket of the same all-reduce)."""
+    if blk.mesh is None:
+        return metrics
+    total = torch.stack([metrics[k].detach().float() for k in keys])
+    distributed.sum_leaves_over_silos(grads + [total], blk.mesh)
+    return dict(metrics, **{k: total[i] for i, k in enumerate(keys)})
+
+
 def _silo_split(num_silos, base_logits, h, labels):
     """(B, S, ...) -> each silo's (B / J, S, ...) rows, as three tuples."""
     B, S, V = base_logits.shape
@@ -209,26 +307,31 @@ def _silo_split(num_silos, base_logits, h, labels):
 # The SFVI train step
 # ---------------------------------------------------------------------------
 
-def make_train_step(cfg: ArchConfig, num_silos: int, lr: float = 3e-4, remat: bool = True):
+def make_train_step(cfg: ArchConfig, num_silos: int, lr: float = 3e-4, remat: bool = True,
+                    mesh: Optional[Mesh] = None):
     """``train_step(state, batch, seed, silo_mask=None, draws=None) ->
     (state, metrics)``; metrics ``elbo``, ``nll_per_tok``, ``aux_moe``,
     ``loss`` (0-d tensors, not read on the host). ``batch``: ``tokens`` and
     ``labels`` (B, S) with B a multiple of ``num_silos``. ``silo_mask`` (J,)
-    keeps the active silos' terms, rescaled by J / |active|."""
+    keeps the active silos' terms, rescaled by J / |active|. On a ``mesh``
+    of several ranks (module docstring) the state is the rank's
+    (:func:`shard_train_state`), ``batch`` the rank's B / N rows, and
+    ``silo_mask`` and ``draws`` the whole federation's."""
     check_port_supported(cfg)
     n_G, n_L = latent_dims(cfg)
     J = num_silos
+    blk = silo_block(cfg, J, mesh)
     opt = adam(lr)
 
     def objective(theta, eta_G, eta_L, batch, eps_G, eps_L, silo_mask):
         z_G = _diag_sample(eta_G, eps_G)
-        # Server term L̂_0, added once.
-        L0 = log_prior_global(cfg, z_G) - _diag_logq_stl(eta_G, z_G)
+        # Server term L̂_0, added once (on the silo group's first rank).
+        L0 = log_prior_global(cfg, z_G) - _diag_logq_stl(eta_G, z_G) if blk.lead else None
         base_logits, aux_moe, h = T.forward(theta, cfg, batch, remat=remat)
         B, S, _ = base_logits.shape
         z_L = _diag_sample(eta_L, eps_L)
-        parts = zip(*_silo_split(J, base_logits, h, batch["labels"]), z_L.unbind(0),
-                    _rows(eta_L), strict=True)
+        parts = zip(*_silo_split(blk.hi - blk.lo, base_logits, h, batch["labels"]),
+                    z_L.unbind(0), _rows(eta_L), strict=True)
         Lj = torch.stack([
             silo_log_lik(cfg, base, hh, z_G, zl, lbl) + log_prior_local(cfg, z_G, zl)
             - _diag_logq_stl(eta_Lj, zl)
@@ -237,9 +340,9 @@ def make_train_step(cfg: ArchConfig, num_silos: int, lr: float = 3e-4, remat: bo
             # Partial participation: only active silos contribute; the
             # J / |active| rescale keeps the estimator unbiased.
             m = silo_mask.float()
-            Lj = Lj * m * (J / torch.clamp(torch.sum(m), min=1.0))
-        elbo = L0 + torch.sum(Lj)
-        ntok = B * S
+            Lj = Lj * m[blk.lo: blk.hi] * (J / torch.clamp(torch.sum(m), min=1.0))
+        elbo = L0 + torch.sum(Lj) if blk.lead else torch.sum(Lj)
+        ntok = B * blk.ranks * S
         loss = -elbo / ntok + AUX_LOSS_WEIGHT * aux_moe
         return loss, {"elbo": elbo, "nll_per_tok": -torch.sum(Lj) / ntok, "aux_moe": aux_moe}
 
@@ -248,9 +351,12 @@ def make_train_step(cfg: ArchConfig, num_silos: int, lr: float = 3e-4, remat: bo
         dev = state.eta_G["mu"].device
         eps_G, eps_L = draws if draws is not None else _draws(seed, ((n_G,), (J, n_L)), dev)
         (loss, metrics), grads = _value_and_grads(
-            lambda th, eg, el: objective(th, eg, el, batch, eps_G, eps_L, silo_mask),
+            lambda th, eg, el: objective(th, eg, el, batch, eps_G, eps_L[blk.lo: blk.hi],
+                                         silo_mask),
             (state.theta, state.eta_G, state.eta_L))
-        return _update(opt, state, grads), _sorted(dict(metrics, loss=loss))
+        metrics = _reduce(blk, grads[0] + grads[1], dict(metrics, loss=loss),
+                          ("elbo", "nll_per_tok", "loss"))
+        return _update(opt, state, grads), _sorted(metrics)
 
     return train_step
 
@@ -260,7 +366,7 @@ def make_train_step(cfg: ArchConfig, num_silos: int, lr: float = 3e-4, remat: bo
 # ---------------------------------------------------------------------------
 
 def make_train_step_avg(cfg: ArchConfig, num_silos: int, avg_every: int, lr: float = 3e-4,
-                        remat: bool = True):
+                        remat: bool = True, mesh: Optional[Mesh] = None):
     """SFVI-Avg: η_G carried per silo ((J, n_G), :func:`init_eta_G_silo`);
     silos take local VI steps with their own ε_G and the N/N_j = J
     likelihood rescale, and every ``avg_every`` steps η_G becomes the
@@ -271,10 +377,12 @@ def make_train_step_avg(cfg: ArchConfig, num_silos: int, avg_every: int, lr: flo
     ``include_barycenter`` switch, which only its comm benchmark sets, has
     no counterpart.)
     ``train_step(state, batch, seed, draws=None)``; metrics
-    ``elbo_local_mean`` and ``loss``."""
+    ``elbo_local_mean`` and ``loss``. On a ``mesh`` of several ranks a rank
+    holds its silos' η_G rows; the barycenter gathers all J first."""
     check_port_supported(cfg)
     n_G, n_L = latent_dims(cfg)
     J = num_silos
+    blk = silo_block(cfg, J, mesh)
     opt = adam(lr)
 
     def objective(theta, eta_G, eta_L, batch, eps_G, eps_L):
@@ -283,36 +391,42 @@ def make_train_step_avg(cfg: ArchConfig, num_silos: int, avg_every: int, lr: flo
         scale = float(J)  # N/N_j likelihood rescale (§3.2 point 2)
         z_G = _diag_sample(eta_G, eps_G)
         z_L = _diag_sample(eta_L, eps_L)
-        parts = zip(*_silo_split(J, base_logits, h, batch["labels"]), z_G.unbind(0),
-                    z_L.unbind(0), _rows(eta_G), _rows(eta_L), strict=True)
+        parts = zip(*_silo_split(blk.hi - blk.lo, base_logits, h, batch["labels"]),
+                    z_G.unbind(0), z_L.unbind(0), _rows(eta_G), _rows(eta_L), strict=True)
         Lj = torch.stack([
             log_prior_global(cfg, zg) - _diag_logq_stl(eta_Gj, zg)
             + scale * (silo_log_lik(cfg, base, hh, zg, zl, lbl) + log_prior_local(cfg, zg, zl))
             - _diag_logq_stl(eta_Lj, zl)
             for base, hh, lbl, zg, zl, eta_Gj, eta_Lj in parts])
         # Local objectives are independent; summing just runs them jointly.
-        loss = -torch.sum(Lj) / (B * S * scale) + AUX_LOSS_WEIGHT * aux_moe
-        return loss, {"elbo_local_mean": torch.mean(Lj)}
+        loss = -torch.sum(Lj) / (B * blk.ranks * S * scale) + AUX_LOSS_WEIGHT * aux_moe
+        mean = torch.mean(Lj) if blk.mesh is None else torch.sum(Lj) / J
+        return loss, {"elbo_local_mean": mean}
 
     def barycenter(eta_G) -> None:
-        """η_G's rows <- their diagonal W2 barycenter, in place."""
+        """η_G's rows <- the diagonal W2 barycenter of all J rows, in place."""
+        whole = {k: distributed.gather_rows(v, blk.mesh) if blk.mesh is not None else v
+                 for k, v in eta_G.items()}
         ones = torch.ones((J,), dtype=torch.float32, device=eta_G["mu"].device)
-        mu = wire_kernels.fused_combine(eta_G["mu"], ones)
-        sigma = wire_kernels.fused_combine(torch.exp(eta_G["log_sigma"]), ones)
-        eta_G["mu"].copy_(mu.expand(J, -1))
-        eta_G["log_sigma"].copy_(torch.log(sigma).expand(J, -1))
+        mu = wire_kernels.fused_combine(whole["mu"], ones)
+        sigma = wire_kernels.fused_combine(torch.exp(whole["log_sigma"]), ones)
+        rows = blk.hi - blk.lo
+        eta_G["mu"].copy_(mu.expand(rows, -1))
+        eta_G["log_sigma"].copy_(torch.log(sigma).expand(rows, -1))
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor], seed: int, draws=None):
         dev = state.eta_G["mu"].device
         eps_G, eps_L = draws if draws is not None else _draws(
             seed, ((J, n_G), (J, n_L)), dev)
         (loss, metrics), grads = _value_and_grads(
-            lambda th, eg, el: objective(th, eg, el, batch, eps_G, eps_L),
+            lambda th, eg, el: objective(th, eg, el, batch, eps_G[blk.lo: blk.hi],
+                                         eps_L[blk.lo: blk.hi]),
             (state.theta, state.eta_G, state.eta_L))
+        metrics = _reduce(blk, grads[0], dict(metrics, loss=loss), ("elbo_local_mean", "loss"))
         new_state = _update(opt, state, grads)
         if (state.step + 1) % avg_every == 0:  # the ONLY cross-silo exchange of η_G
             barycenter(new_state.eta_G)
-        return new_state, _sorted(dict(metrics, loss=loss))
+        return new_state, _sorted(metrics)
 
     return train_step
 

@@ -41,6 +41,19 @@ def glmm_log_joint_local(z_G: torch.Tensor, b: torch.Tensor, data: dict) -> torc
     return lp_b + ll
 
 
+def pooled_log_prob(data: dict):
+    """The HMC oracle's target over every child (the paper's Figure S1 and
+    ``benchmarks/bench_glmm.py``'s): q = (β, ω, b) of dim 5 + children,
+    log p = Σ −z_G² / 200 (the N(0, 100) prior up to its constant) + the
+    joint of y and b given z_G."""
+
+    def log_prob(q: torch.Tensor) -> torch.Tensor:
+        z_G, b = q[:GLOBAL_DIM], q[GLOBAL_DIM:]
+        return torch.sum(-0.5 * z_G**2 / 100.0) + glmm_log_joint_local(z_G, b, data)
+
+    return log_prob
+
+
 @dataclasses.dataclass(frozen=True)
 class GLMM:
     problem: SFVIProblem

@@ -31,13 +31,20 @@ PyTree = Any
 
 @dataclasses.dataclass(frozen=True)
 class ModelBundle:
-    """Everything one federation run needs, staged on one device."""
+    """Everything one federation run needs, staged on one device.
+
+    ``extras`` holds the model's artifacts for benchmarks, oracles and
+    checks under the reference's keys (toy's closed-form posterior,
+    glmm's pooled data, the BNN and LDA models, test splits), each the
+    port's object on the bundle's device.
+    """
 
     problem: Any
     theta0: PyTree
     datas: List[PyTree]
     num_obs: Optional[List[int]] = None
     eval_fn: Optional[Callable[[Any], Dict[str, float]]] = None
+    extras: Dict[str, Any] = dataclasses.field(default_factory=dict)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -124,7 +131,8 @@ def _bnn_bundle(seed: int, num_silos: int, *, fedpop: bool, device, kwargs) -> M
 
     return ModelBundle(
         problem=bnn.problem, theta0={}, datas=train,
-        num_obs=[int(d["y"].shape[0]) for d in train], eval_fn=eval_fn)
+        num_obs=[int(d["y"].shape[0]) for d in train], eval_fn=eval_fn,
+        extras={"bnn": bnn, "test": test})
 
 
 @register("hier_bnn", "Hierarchical BNN on heterogeneous synthetic MNIST (§4.1)")
@@ -173,7 +181,9 @@ def _build_toy(seed: int, num_silos: int, *, device=None, num_obs: int = 40,
 
     return ModelBundle(
         problem=problem, theta0={}, datas=_float_tensors([{"y": y} for y in ys], dev),
-        num_obs=[num_obs] * num_silos, eval_fn=eval_fn)
+        num_obs=[num_obs] * num_silos, eval_fn=eval_fn,
+        extras={"true_mu": true_mu, "posterior_mu": post_mu,
+                "posterior_sd": float(np.sqrt(1.0 / post_prec))})
 
 
 @register("glmm", "Bayesian logistic GLMM, six-cities protocol (supplement S3.1)")
@@ -184,9 +194,12 @@ def _build_glmm(seed: int, num_silos: int, *, device=None, num_children: int = 1
     Every silo carries ``num_children // num_silos`` children (the leftover
     children are dropped, as in the reference). The data are drawn from
     numpy Generators (the reference draws with ``jax.random``); ``datas``
-    (numpy dicts with ``smoke``/``age``/``y``) replaces them. No eval hook.
+    (numpy dicts with ``smoke``/``age``/``y``) replaces them, and then the
+    pooled data are the silos' children in silo order. No eval hook.
+    ``extras``: ``pooled`` (every child, before the split: the HMC
+    oracle's target), the generator's ``truth`` and ``num_children``.
     """
-    from repro_torch.data import make_six_cities, sizes_partition
+    from repro_torch.data import make_six_cities, six_cities_truth, sizes_partition
     from repro_torch.models.paper.glmm import build_glmm
 
     dev = resolve_device(device)
@@ -196,11 +209,16 @@ def _build_glmm(seed: int, num_silos: int, *, device=None, num_children: int = 1
         data, _ = make_six_cities(np.random.default_rng(seed + 3), num_children=total)
         parts = sizes_partition(np.random.default_rng(seed), total, [per_silo] * num_silos)
         datas = [{k: v[p] for k, v in data.items()} for p in parts]
+    else:
+        data = {k: np.concatenate([np.asarray(d[k]) for d in datas]) for k in datas[0]}
     if len(datas) != num_silos:
         raise ValueError(f"got {len(datas)} silo datasets for {num_silos} silos")
     glmm = build_glmm(num_children_j=per_silo)
     return ModelBundle(problem=glmm.problem, theta0={}, datas=_float_tensors(datas, dev),
-                       num_obs=[per_silo] * num_silos, eval_fn=None)
+                       num_obs=[per_silo] * num_silos, eval_fn=None,
+                       extras={"pooled": _float_tensors([data], dev)[0],
+                               "truth": six_cities_truth(),
+                               "num_children": int(len(data["y"]))})
 
 
 Split = Tuple[np.ndarray, np.ndarray]  # (x (n, d) float32, y (n,) integer labels)
@@ -227,9 +245,10 @@ def _mnist_splits(seed: int, num_train: int, num_test: int, in_dim: int,
 
 
 def _multinomial_bundle(datas, num_obs, in_dim, train: Split, test: Split,
-                        device) -> ModelBundle:
+                        device, extras=None) -> ModelBundle:
     """The multinomial model over staged silos; eval: posterior-mean accuracy
-    on the whole training set and on the test set."""
+    on the whole training set and on the test set. ``extras``: the model,
+    ``train_all``, ``test`` and the builder's own."""
     from repro_torch.convert import datas_from_numpy
     from repro_torch.models.paper.multinomial import build_multinomial, init_theta
 
@@ -244,7 +263,9 @@ def _multinomial_bundle(datas, num_obs, in_dim, train: Split, test: Split,
 
     return ModelBundle(problem=model.problem, theta0=init_theta(device),
                        datas=datas_from_numpy(datas, device), num_obs=num_obs,
-                       eval_fn=eval_fn)
+                       eval_fn=eval_fn,
+                       extras={"model": model, "train_all": train_all, "test": test_all,
+                               **(extras or {})})
 
 
 @register("hetero_mn",
@@ -269,7 +290,10 @@ def _build_hetero_mn(seed: int, num_silos: int, *, device=None, n_total: int = 2
     parts = dirichlet_label_partition(np.random.default_rng(seed), y, num_silos,
                                       alpha=alpha, min_per_silo=min_per_silo)
     datas = pad_ragged_silos([{"x": x[p], "y": y[p]} for p in parts])
-    return _multinomial_bundle(datas, [len(p) for p in parts], in_dim, train, test, dev)
+    num_obs = [len(p) for p in parts]
+    skew = float(np.std(num_obs) / np.mean(num_obs))
+    return _multinomial_bundle(datas, num_obs, in_dim, train, test, dev,
+                               extras={"partitions": parts, "alpha": alpha, "size_skew": skew})
 
 
 @register("multinomial",
@@ -309,4 +333,5 @@ def _build_prodlda(seed: int, num_silos: int, *, device=None,
                 "coherence_mean": float(np.mean(coh))}
 
     return ModelBundle(problem=lda.problem, theta0=init_theta(dev), datas=datas,
-                       num_obs=[lda.docs_per_silo] * num_silos, eval_fn=eval_fn)
+                       num_obs=[lda.docs_per_silo] * num_silos, eval_fn=eval_fn,
+                       extras={"lda": lda, "counts": counts})

@@ -25,7 +25,10 @@ the last chunk. Here, on numpy-seeded inputs:
   partials summed in tile order as the reduction sums them, equals
   ``gla_plain`` on the whole to f32 rounding, and so do the state pieces;
 * the mutants ``chip_smoke.py --gla-mutants`` builds: each one's text
-  stands in ``csrc/gla.cu`` exactly once and its replacement changes it.
+  stands in ``csrc/gla.cu`` exactly once and its replacement changes it;
+* phase 3b's hold (``chip_smoke.FirstLaunches.hold``) asserts GLA's
+  element limit on a launch at dk <= 128 too: an output within the
+  max-abs limit with one element at twice its element limit fails it.
 """
 import importlib.util
 from pathlib import Path
@@ -301,7 +304,8 @@ def _chip_smoke():
     return module
 
 
-GLA_MUTANTS = _chip_smoke().GLA_MUTANTS
+CHIP_SMOKE = _chip_smoke()
+GLA_MUTANTS = CHIP_SMOKE.GLA_MUTANTS
 
 
 @pytest.mark.parametrize("mutant", GLA_MUTANTS, ids=[m[0] for m in GLA_MUTANTS])
@@ -312,3 +316,29 @@ def test_gla_mutant_text_is_in_the_kernel_once(mutant):
     source = (Path(tgla.__file__).resolve().parents[1] / "csrc" / "gla.cu").read_text()
     assert source.count(old) == 1, name
     assert source.replace(old, new) != source, name
+
+
+def test_phase_3b_holds_the_gla_element_limit_at_every_dk():
+    cs = CHIP_SMOKE
+    q, k, v, a = (torch.from_numpy(x) for x in _inputs(2, 100, 3, 64, 64, False, 5))
+    q, k, v = (x.to(torch.bfloat16) for x in (q, k, v))
+    want = tref.gla_plain(q, k, v, a, chunk=tgla.CHUNK)
+    w = want.float()
+    limit = (cs.GLA_BF16_STEP * w.abs()
+             + cs.GLA_BF16_ROW_RMS * w.pow(2).mean(-1, keepdim=True).sqrt())
+    i = int(torch.argmin(limit + (w == 0) * 1e9))
+    bad = w.clone().view(-1)
+    bad[i] += 2.0 * float(limit.view(-1)[i])
+    bad = bad.view(w.shape).to(torch.bfloat16)
+    assert float((bad.float() - w).abs().max()) < cs.DTYPE_TOL["bfloat16"]  # max-abs passes
+    assert cs.gla_bf16_ratio(torch, bad, want) > 1.0
+
+    def hold(got):
+        first = cs.FirstLaunches(torch)
+        first.kept["gla"][("case",)] = ((q, k, v, a), {"chunk": tgla.CHUNK}, got)
+        first.calls["gla"] = 1
+        return first.hold(tref, "dk 64", {"rmsnorm": 0, "flash_attention": 0, "gla": 1})
+
+    assert hold(want) == 1
+    with pytest.raises(AssertionError):
+        hold(bad)

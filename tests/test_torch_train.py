@@ -475,7 +475,9 @@ def test_cli_bytes_per_round_match_reference(algo):
 
 
 def test_cli_refuses_a_mesh():
-    with pytest.raises(SystemExit, match="multi-process training is not ported"):
+    """A mesh of several devices in one process (the reference's form) is
+    refused, naming the process flags that span it."""
+    with pytest.raises(SystemExit, match="--num-processes 2"):
         t_train.main(["--mesh", "silo=2", "--device", "cpu", "--steps", "1"])
 
 
